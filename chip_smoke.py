@@ -1,19 +1,25 @@
 """Smoke run of the PyTorch port on one CUDA card: build the kernels, hold
-each against its plain PyTorch twin at main-path shapes, and render the
+each against its plain PyTorch twin at main-path shapes, and drive the
 example6 scene (terrain, trees, physical sky + clouds, sun) at 1280x720
-through ``Scene.finish``.
+through ``Scene.finish`` (still frames), ``Scene.run_frames`` (a moving
+camera path) and the browser viewer.
 
     python3 chip_smoke.py
 
-Phases, each printing its own line: device, build, scene set-up, the main
-path (64 spp at 16 samples per launch, the launch counters set to 0 just
-before it and read just after), B1 against its twin on the main path's own
-four dispatches, the steady-state rate and a profiled launch, B2 and B3
-against their twins on main-path inputs, a small-render check of the card
-path against the CPU path, then the kernels JSON line, the card's name and
-power limit, and the result line ``{"ok": true, "device": {...}}`` last.
-Details go to ``chiprun_out/chip_smoke.json``. Any failure exits non-zero
-before the result line. Without a CUDA card it exits 1 at once.
+Phases, each printing its own line: 1 device, 2 build, 3 scene set-up, 4 the
+still path (64 spp at 16 samples per launch, the launch counters set to 0
+just before it and read just after), 5 B1 against its twin on that path's
+own four dispatches, 6 the steady-state rate and a profiled launch, 7 B2 and
+B3 against their twins on main-path inputs, 8 a small-render check of the
+card path against the CPU path; 9 the moving path (24 moving frames at
+640x360 active, then 6 still frames, counters set to 0 just before and read
+just after), 10 B4 against its twin on the last moving frame's own two
+calls, with both tap filters, 11 a profiled moving frame, 12 the viewer
+driven over HTTP, 13 a small moving-path check of the card against the
+CPU; then the kernels JSON line, the card's name and power limit, and the
+result line ``{"ok": true, "device": {...}}`` last. Details go to
+``chiprun_out/chip_smoke.json``. Any failure exits non-zero before the
+result line. Without a CUDA card it exits 1 at once.
 """
 
 from __future__ import annotations
@@ -22,7 +28,10 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 
@@ -31,6 +40,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM non-tensor float32, NVIDIA data sheet
 MAIN_SPP = 64
 MAIN_SPL = 16
+# The camera path of tools/camera_path_bench.py: orbit + dolly, then hold.
+MOVE = {"orbit": (0.01, 0.002), "move_keys": ["w"], "dt": 0.02}
+HOLD = {"dt": 0.02}
+N_MOVING, N_STILL = 24, 6
 
 
 def fail(msg):
@@ -204,29 +217,35 @@ def b1_bound_ms(args, kw, n_alive, sum_iters):
                                  else "operations")
 
 
-def profile_launch(r, launch_wall_ms):
+def profile_launch(r, launch_wall_ms, moving=False):
     """Device time of one accumulate launch by kernel, from torch.profiler
-    tracing the card's activity only: the three port kernels, and everything
+    tracing the card's activity only: the port's kernels, and everything
     else (PyTorch's own elementwise, indexing and reduction kernels). The
     device's idle share is taken against ``launch_wall_ms``, the wall time
-    of an unprofiled launch, since tracing lengthens the launch it traces."""
+    of an unprofiled launch, since tracing lengthens the launch it traces.
+    ``moving``: a moving frame (render scale 0.5, history cap 50) from the
+    renderer's current state, whose previous matrices must differ from the
+    current ones; else a still launch."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from voxelrt_torch.ops import prng
     from voxelrt_torch.render import pipeline
 
-    params = r._params(999999999.0)
+    params = r._params(50.0 if moving else 999999999.0)
+    scale = 0.5 if moving else 1.0
     key = prng.fold_in(r.key, 10_000)
-    pipeline.accumulate(r.cfg, r.scene_data, params, r.state, key)
+    pipeline.accumulate(r.cfg, r.scene_data, params, r.state, key, moving,
+                        scale)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as p:
         t0 = time.perf_counter()
-        pipeline.accumulate(r.cfg, r.scene_data, params, r.state, key)
+        pipeline.accumulate(r.cfg, r.scene_data, params, r.state, key,
+                            moving, scale)
         torch.cuda.synchronize()
         traced_wall_ms = (time.perf_counter() - t0) * 1e3
     groups = {"traverse_kernel": 0.0, "point_kernel": 0.0,
-              "bilinear_kernel": 0.0, "other": 0.0}
+              "bilinear_kernel": 0.0, "taps_kernel": 0.0, "other": 0.0}
     n_kernels = 0
     top = []
     # Only the device's own events: a runtime entry on the host side would
@@ -246,6 +265,159 @@ def profile_launch(r, launch_wall_ms):
                 idle_share=1.0 - dev_ms / launch_wall_ms,
                 by_group_ms=groups,
                 top_kernels=[dict(ms=t, count=c, name=k) for t, c, k in top[:12]])
+
+
+def b4_bound_ms(args):
+    """B4's least time for one call: every per-lane input read once (fxc,
+    fyc, fxh, fyh, centre depth, centre normal: 32 B), every output written
+    once (current 12 B, w_sum 4 B, history 16 B, and 4 B of filtered extra
+    on the specular pass), and each source table the call reads (current and
+    history 2 words each, previous normals, and the depth or the extra
+    table) read once at 4 B a texel. The arithmetic (16 taps of about 40
+    float32 operations a lane) is counted beside it."""
+    cur, hist, pn, pd_lin, extra = args[:5]
+    m = args[5].shape[0]
+    ires_x, ires_y, catmull, gate_depth = args[11:15]
+    n_tables = 5 + int(bool(gate_depth)) + int(extra is not None)
+    nbytes = (m * (32 + 32 + (4 if extra is not None else 0))
+              + ires_x * ires_y * 4 * n_tables)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = m * (16 if catmull else 4) * 40.0 / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def b4_check(args, reps=10):
+    """B4 kernel vs twin on one set of ``temporal_taps`` arguments, both on
+    the card: the share of lanes with any output outside 1e-6 relative."""
+    import torch
+
+    from voxelrt_torch.ops import resample as rs
+
+    k = rs.temporal_taps(*args)
+    p = rs.temporal_taps_plain(*args)
+    torch.cuda.synchronize()
+    m = args[5].shape[0]
+    bad = torch.zeros(m, dtype=torch.bool, device=args[5].device)
+    max_err = 0.0
+    finite = True
+    for a, b in zip(k, p):
+        if a is None:
+            if b is not None:
+                fail("B4 and its twin disagree on the extra output")
+            continue
+        finite = finite and bool(torch.isfinite(a).all().item())
+        far = ~torch.isclose(a, b, rtol=1e-6, atol=1e-9)
+        bad |= far.reshape(m, -1).any(-1)
+        max_err = max(max_err, (a - b).abs().max().item())
+    out = dict(m=m, n=args[11] * args[12], catmullrom=bool(args[13]),
+               gate_depth=bool(args[14]), with_extra=args[4] is not None,
+               share_outside=bad.float().mean().item(), max_abs_err=max_err,
+               finite=finite,
+               w_sum_equal=bool(torch.equal(k[1], p[1])),
+               has_hist_share=(k[1] > 1e-3).float().mean().item())
+    out["ok"] = finite and out["share_outside"] <= 0.001
+    out["ms"] = cuda_ms(lambda: rs.temporal_taps(*args), reps)
+    out["plain_ms"] = cuda_ms(lambda: rs.temporal_taps_plain(*args), 3)
+    out["bound_ms"], out["bound_by"] = b4_bound_ms(args)
+    return out
+
+
+def http_get(port, path):
+    try:
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}{path}", timeout=30) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def viewer_visit(scene, max_frames, csv_path):
+    """Serve ``scene`` through the browser viewer in a thread, act as its
+    page (landing page, frames, input, /stat until it reports a moving
+    stretch, an unknown path), and wait for the loop to end. Returns a dict
+    of figures; fails on any wrong answer."""
+    from voxelrt_torch.app import viewer
+
+    port_box, done, errors = [], threading.Event(), []
+    t_ready = []
+
+    def ready(port):
+        t_ready.append(time.perf_counter())
+        port_box.append(port)
+
+    def run():
+        try:
+            viewer.serve(scene, port=0, max_frames=max_frames,
+                         stats_csv=csv_path, ready_cb=ready)
+        except BaseException as e:  # reported by the main thread below
+            errors.append(repr(e))
+        finally:
+            t_ready.append(time.perf_counter())
+            done.set()
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    deadline = time.time() + 300
+    while not port_box and not done.is_set() and time.time() < deadline:
+        time.sleep(0.01)
+    if not port_box:
+        fail(f"viewer never bound a port: {errors}")
+    port = port_box[0]
+    code, body = http_get(port, "/")
+    if code != 200 or b"frame.png" not in body:
+        fail("viewer landing page is wrong")
+    # hold W from the first frames on, as a user who starts walking
+    code, body = http_get(port, "/input?keys=w&dx=0.01&dy=0")
+    if code != 200 or body != b"ok":
+        fail("viewer /input did not answer ok")
+    png = b""
+    while not png and not done.is_set() and time.time() < deadline:
+        code, png = http_get(port, "/frame.png")
+        time.sleep(0.03)
+    if png[:8] != b"\x89PNG\r\n\x1a\n":
+        fail("viewer served no PNG frame")
+    saw_moving = False
+    stat = {}
+    while not done.is_set() and time.time() < deadline:
+        stat = json.loads(http_get(port, "/stat")[1])
+        if stat.get("moving"):
+            saw_moving = True
+            break
+        time.sleep(0.03)
+    http_get(port, "/input?keys=&dx=0&dy=0")
+    if http_get(port, "/nope")[0] != 404:
+        fail("viewer did not answer 404 to an unknown path")
+    done.wait(timeout=300)
+    th.join(timeout=30)
+    if th.is_alive() or errors:
+        fail(f"viewer loop did not end cleanly: {errors}")
+    if not saw_moving:
+        fail("viewer /stat never reported a moving frame")
+    with open(csv_path) as fh:
+        rows = [ln.strip().split(",") for ln in fh.readlines()[1:]]
+    if len(rows) != max_frames:
+        fail(f"viewer recorded {len(rows)} frames, expected {max_frames}")
+    mv = sorted(float(r[2]) for r in rows if r[4] == "1")
+    st = sorted(float(r[2]) for r in rows[2:] if r[4] == "0")
+    return dict(frames=len(rows), moving_frames=len(mv), png_bytes=len(png),
+                served_frame_ms=(t_ready[-1] - t_ready[0]) / len(rows) * 1e3,
+                render_moving_ms=mv[len(mv) // 2] if mv else None,
+                render_still_ms=st[len(st) // 2] if st else None,
+                last_stat=stat)
+
+
+def run_path(scene, frames):
+    """Drive ``scene.run_frames`` over ``frames``; returns (images taken
+    with on_frame, FrameStats rows)."""
+    from voxelrt_torch.utils.profiling import FrameStats
+
+    imgs = []
+    with open(os.devnull, "w") as null:
+        stats = FrameStats(out=null)
+        scene.run_frames([dict(f) for f in frames], stats=stats,
+                         on_frame=lambda i, img: imgs.append(np.array(img)))
+    return imgs, stats.rows
 
 
 def main():
@@ -329,8 +501,8 @@ def main():
         fail("image is not finite or has the wrong shape")
     if float(img.std()) <= 1e-4:
         fail("image is constant")
-    for kname, cnt in launches.items():
-        if cnt <= 0:
+    for kname in ("traverse", "point_fetch", "bilinear_fetch"):
+        if launches[kname] <= 0:
             fail(f"kernel {kname} was not launched on the main path")
     print(f"image: mean {img.mean():.4f} std {img.std():.4f}", flush=True)
 
@@ -414,6 +586,113 @@ def main():
     if not rmse < 1e-4:
         fail("card render disagrees with the CPU path")
 
+    # -- 9. the moving path at full width: Scene.run_frames ---------------------
+    # A fresh example6 Scene with its default config (one sample per
+    # launch), the camera path of tools/camera_path_bench.py: 24 moving
+    # frames (640x360 active, B4 twice a frame), then 6 still ones.
+    from voxelrt_torch.render import temporal
+    from voxelrt_torch.utils.profiling import FrameStats
+
+    mscene = build_example6(None)
+    mr = mscene.renderer
+    rec_b4 = Recorder(temporal, "temporal_taps", keep=2)
+    with open(os.devnull, "w") as null:
+        mstats = FrameStats(out=null)
+        _cuda.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        mimg = mscene.run_frames(
+            [dict(MOVE) for _ in range(N_MOVING)]
+            + [dict(HOLD) for _ in range(N_STILL)], stats=mstats)
+        torch.cuda.synchronize()
+        path_s = time.perf_counter() - t0
+        mlaunches = dict(_cuda.LAUNCHES)
+    rec_b4.restore()
+    mpeak_gb = torch.cuda.max_memory_allocated() / 1e9
+    flags = [row["moving"] for row in mstats.rows]
+    walls = [row["wall_ms"] for row in mstats.rows]
+    mv_ms = sorted(walls[2:N_MOVING])
+    st_ms = sorted(walls[N_MOVING + 2:])
+    moving_frame_ms = mv_ms[len(mv_ms) // 2]
+    still_frame_ms = st_ms[len(st_ms) // 2]
+    print(f"moving path: Scene.run_frames, {N_MOVING} moving + {N_STILL} "
+          f"still frames at {w}x{h} (moving: 640x360 active), "
+          f"samples_per_launch={mr.cfg.samples_per_launch}, "
+          f"motion_filter={mr.cfg.motion_filter}, {path_s:.2f} s with "
+          f"set-up, moving_frame_ms {moving_frame_ms:.3f}, still_frame_ms "
+          f"{still_frame_ms:.3f}, first moving frame {walls[0]:.1f} ms, "
+          f"peak {mpeak_gb:.2f} GB, launches {mlaunches}", flush=True)
+    if mimg.shape != (w, h, 3) or not np.isfinite(mimg).all():
+        fail("moving path: image is not finite or has the wrong shape")
+    if float(mimg.std()) <= 1e-4:
+        fail("moving path: image is constant")
+    if flags != [True] * N_MOVING + [False] * N_STILL:
+        fail(f"moving path: wrong moving flags {flags}")
+    if mlaunches["temporal_taps"] != 2 * N_MOVING:
+        fail(f"moving path: {mlaunches['temporal_taps']} B4 launches, "
+             f"expected {2 * N_MOVING}")
+    for kname in ("traverse", "point_fetch"):
+        if mlaunches[kname] <= 0:
+            fail(f"kernel {kname} was not launched on the moving path")
+
+    # -- 10. B4 kernel vs twin on the last moving frame's own calls ------------
+    # Diffuse pass (depth gate, no extra) and specular pass (extra, no depth
+    # gate), as recorded (Catmull-Rom) and with the bilinear taps.
+    if len(rec_b4.calls) != 2:
+        fail("moving path: B4's calls were not recorded")
+    b4 = {}
+    for (cargs, ckw), tag in zip(rec_b4.calls, ("diffuse", "specular")):
+        if len(cargs) != 11 or set(ckw) != {"ires_x", "ires_y", "catmullrom",
+                                            "gate_depth"}:
+            fail("B4 was called in a form this script does not know")
+        if not (ckw["catmullrom"] and ckw["gate_depth"] == (tag == "diffuse")
+                and (cargs[4] is None) == (tag == "diffuse")):
+            fail(f"B4's recorded call is not the {tag} pass")
+        for cat in (True, False):
+            a = cargs + (ckw["ires_x"], ckw["ires_y"], cat,
+                         ckw["gate_depth"])
+            name = f"{tag}_{'catmullrom' if cat else 'bilinear'}"
+            b4[name] = b4_check(a)
+            print(f"B4 {name}: {json.dumps(b4[name])}", flush=True)
+            if not b4[name]["ok"]:
+                fail(f"B4 ({name}) disagrees with its twin")
+    del rec_b4
+
+    # -- 11. one moving frame profiled -------------------------------------------
+    # Two moving frames first, so that the profiled one reprojects a real
+    # history; then the camera moves once more.
+    mr.run_frames([dict(MOVE), dict(MOVE)], fetch_final=False)
+    mscene.camera.orbit(*MOVE["orbit"])
+    mprof = profile_launch(mr, moving_frame_ms, moving=True)
+    print(f"moving frame profiled (idle share against phase 9's unprofiled "
+          f"moving_frame_ms): {json.dumps(mprof)}", flush=True)
+    if mprof["by_group_ms"]["taps_kernel"] <= 0.0:
+        fail("the profiled moving frame shows no B4 device time")
+
+    # -- 12. the viewer, over HTTP, on the card ----------------------------------
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    view = viewer_visit(mscene, 20, os.path.join(HERE, "chiprun_out",
+                                                   "viewer_stats.csv"))
+    print(f"viewer: {json.dumps(view)}", flush=True)
+    del mr, mscene
+
+    # -- 13. small moving path: card vs the plain CPU path -----------------------
+    spath = {}
+    for d in ("cuda", "cpu"):
+        spath[d], _ = run_path(build_example6(d, image_res=(128, 72)),
+                               [MOVE] * 3 + [HOLD] * 2)
+    far = [float((np.abs(a - b) > 2e-3).any(-1).mean())
+           for a, b in zip(spath["cuda"][:3], spath["cpu"][:3])]
+    srmse = [float(np.sqrt(np.mean((a - b) ** 2)))
+             for a, b in zip(spath["cuda"][3:], spath["cpu"][3:])]
+    print(f"small moving path (example6 128x72, 3 moving + 2 still): card "
+          f"vs CPU path, share of pixels beyond 2e-3 per moving frame {far}, "
+          f"RMSE per still frame {srmse}", flush=True)
+    # The bars the CPU path meets against the JAX package
+    # (tests/test_torch_frames.py).
+    if max(far) > 0.01 or not max(srmse) < 1e-4:
+        fail("card moving path disagrees with the CPU path")
+
     if "jax" in sys.modules or "voxelrt" in sys.modules:
         fail("the port imported jax or the voxelrt package")
 
@@ -447,15 +726,35 @@ def main():
              library_ms=None, shape="1 lane (main path)",
              n1M_ms=b3["n1M"]["ms"], n1M_plain_ms=b3["n1M"]["plain_ms"],
              n1M_bound_ms=b3["n1M"]["bound_ms"]),
+        dict(name="B4 temporal_taps", route="cuda",
+             source="voxelrt_torch/csrc/resample.cu",
+             replaces="voxelrt/ops/resample.py:128",
+             launches=mlaunches["temporal_taps"],
+             max_abs_err=max(c["max_abs_err"] for c in b4.values()),
+             share_outside=max(c["share_outside"] for c in b4.values()),
+             ms=b4["diffuse_catmullrom"]["ms"],
+             plain_ms=b4["diffuse_catmullrom"]["plain_ms"],
+             bound_ms=b4["diffuse_catmullrom"]["bound_ms"],
+             bound_by=b4["diffuse_catmullrom"]["bound_by"],
+             library_ms=None,
+             shape=f"{b4['diffuse_catmullrom']['m']} lanes, "
+                   f"{b4['diffuse_catmullrom']['n']} texels (diffuse pass, "
+                   "Catmull-Rom)",
+             variant_ms={k: c["ms"] for k, c in b4.items()},
+             variant_plain_ms={k: c["plain_ms"] for k, c in b4.items()},
+             variant_bound_ms={k: c["bound_ms"] for k, c in b4.items()}),
     ]
-    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump(dict(kernels=kernels, setup_s=setup_s,
                        per_spp_ms=per_spp_ms, launches=launches,
                        samples_per_launch=r.cfg.samples_per_launch,
                        peak_gb=peak_gb, small_rmse=rmse, device=smi,
                        steady_per_spp_ms=steady_ms, profile=prof,
-                       b1_depths=b1, b3=b3),
+                       b1_depths=b1, b3=b3, moving_frame_ms=moving_frame_ms,
+                       still_frame_ms=still_frame_ms, moving_wall_ms=walls,
+                       moving_launches=mlaunches, moving_peak_gb=mpeak_gb,
+                       b4=b4, moving_profile=mprof, viewer=view,
+                       small_path_far=far, small_path_rmse=srmse),
                   fh, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)

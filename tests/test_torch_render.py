@@ -65,7 +65,7 @@ def test_trace_sample_per_pixel(both):
     jo = jax.jit(jpt.trace_sample, static_argnums=(0, 6, 7))(
         cfg, sd, p, key, u, v, False, 1.0)
     tc1 = dataclasses.replace(tcfg, samples_per_launch=1)
-    tu, tv, _ = tpl.wavefront_constants(tc1, "cpu")
+    tu, tv, _ = tpl.wavefront_constants(tc1, 1.0, "cpu")
     np.testing.assert_array_equal(tu.numpy(), np.asarray(u))
     np.testing.assert_array_equal(tv.numpy(), np.asarray(v))
     skeys, jit = tpl.sample_keys_of(prng.key(3), 1)

@@ -4,7 +4,7 @@
 interpret mode), on a scene built through the 8-method API with no sky and
 on example6 with its physical sky + clouds. The JAX package's sky
 precompute writes the .skycache/ entry that the port's ``load_sky`` then
-reads: the sky is handed over, since its precompute is port slice 2.
+reads: the sky is handed over, since its precompute is not ported yet.
 
 Images are held to an RMSE of 1e-4 (the golden-image bar of
 tests/test_examples_golden.py is 0.015); the residual comes from float32

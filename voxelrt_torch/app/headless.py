@@ -1,6 +1,7 @@
-"""Headless renderer driver: owns device scene data, render params and the
-progressive accumulation loop (the PyTorch port of voxelrt/app/headless.py,
-still-frame path; ``run_frames`` is port slice 2)."""
+"""Headless renderer: owns the device scene data, the render params, the
+progressive accumulation loop (``render``) and the scripted camera-path
+loop with the reference's motion policy (``run_frames``); the PyTorch port
+of voxelrt/app/headless.py."""
 
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from voxelrt_torch.ops.accel import add_sun_open_table, build_pallas_tables
 from voxelrt_torch.ops.dda_kernel import upload_tables
 from voxelrt_torch.render import pipeline
 from voxelrt_torch.render.pathtracer import RenderParams, SceneData
+from voxelrt_torch.utils.profiling import sync
 
 
 def _i32(a: np.ndarray, device) -> torch.Tensor:
@@ -145,24 +147,34 @@ class HeadlessRenderer:
 
     # -- static-camera progressive render ------------------------------------
 
-    def render(self, spp=512, chunk=None, log_every=128):
+    def render(self, spp=512, chunk=None, log_every=128, stats=None):
         """Accumulate ``spp`` samples with the camera fixed, ``chunk``
         samples per accumulate_n call keyed by fold_in(key, frame) as in the
-        JAX package; returns the tonemapped (W, H, 3) float image."""
+        JAX package; returns the tonemapped (W, H, 3) float image.
+        ``stats``: optional :class:`voxelrt_torch.utils.profiling.FrameStats`
+        receiving one row per chunk."""
         chunk = chunk or max(1, min(spp, self.cfg.samples_per_launch * 8))
         params = self._params(max_accum_frames=999999999.0)
         done = 0
+        n_pixels = self.cfg.image_res[0] * self.cfg.image_res[1]
         t0 = time.perf_counter()
         while done < spp:
             n = min(chunk, spp - done)
+            tc0 = time.perf_counter()
             self.state = pipeline.accumulate_n(
                 self.cfg, self.scene_data, params, self.state,
                 prng.fold_in(self.key, self._frame), False, 1.0, n)
             self._frame += n
             done += n
+            if stats is not None:
+                sync(self.device)
+                # ≥2 traces (primary + NEE shadow) per bounce-capable sample
+                stats.record(self._frame, done,
+                             (time.perf_counter() - tc0) * 1e3,
+                             n_rays=n * n_pixels * 2 * self.cfg.max_ray_depth,
+                             quiet=self.quiet)
             if not self.quiet and (done % log_every == 0 or done == spp):
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
+                sync(self.device)
                 print(f"  {done}/{spp} spp  ({time.perf_counter() - t0:.2f}s)")
         self.copy_prev_matrices()
         return self.fetch_image(render_scale=1.0)
@@ -171,3 +183,96 @@ class HeadlessRenderer:
         img = pipeline.fetch_image(self.cfg, self.state, self._exposure,
                                    render_scale)
         return img.cpu().numpy()
+
+    # -- interactive-equivalent loop -----------------------------------------
+
+    def run_frames(self, frames, spp_per_frame=1, on_frame=None, stats=None,
+                   fetch_final=True, sync_lag=0):
+        """Scripted camera-path loop with the reference's motion policy
+        (scene.py:206-256): while moving → render_scale 0.5, history cap 50;
+        transitions reset the framebuffer. ``frames`` is an iterable of
+        dicts with optional ``move_keys``, ``orbit`` and ``dt``. ``stats``:
+        optional :class:`voxelrt_torch.utils.profiling.FrameStats` receiving
+        one row per frame. ``fetch_final=False`` skips the final image
+        fetch (throughput loops sync elsewhere).
+
+        ``sync_lag=N`` (with ``stats``) waits for frame ``i-N`` after
+        dispatching frame ``i`` — double buffering at N=1: the display is
+        one frame behind while the host prepares the next frame. Recorded
+        ``wall_ms`` is then the time BETWEEN successive frame completions,
+        not dispatch-to-sync. Ignored when ``on_frame`` forces a per-frame
+        image fetch."""
+        camera_is_moving = False
+        img = None
+        last_t = time.perf_counter()
+        pending = []  # (frame_idx, spp, n_rays, moving, done event or None)
+        last_sync_t = time.perf_counter()
+
+        def _drain(to_len):
+            nonlocal last_sync_t
+            while len(pending) > to_len:
+                fidx, n_spp, n_rays, mov, done = pending.pop(0)
+                if done is not None:
+                    done.synchronize()
+                now = time.perf_counter()
+                stats.record(fidx, n_spp, (now - last_sync_t) * 1e3,
+                             n_rays=n_rays, quiet=self.quiet, moving=mov)
+                last_sync_t = now
+
+        for i, frame in enumerate(frames):
+            dt = frame.get("dt")
+            if dt is None:
+                now = time.perf_counter()
+                dt = now - last_t
+                last_t = now
+            moved = False
+            if frame.get("move_keys"):
+                moved |= self.scene.camera.translate(frame["move_keys"], dt)
+            if frame.get("orbit"):
+                moved |= self.scene.camera.orbit(*frame["orbit"])
+
+            should_reset = moved != camera_is_moving
+            camera_is_moving = moved
+            max_accum = 50.0 if moved else 999999999.0
+            render_scale = 0.5 if moved else 1.0
+
+            if should_reset:
+                self.state = pipeline.reset_framebuffer(self.state)
+
+            params = self._params(max_accum_frames=max_accum)
+            tf0 = time.perf_counter()
+            self.state = pipeline.accumulate_n(
+                self.cfg, self.scene_data, params, self.state,
+                prng.fold_in(self.key, self._frame),
+                camera_is_moving, render_scale, spp_per_frame)
+            self._frame += spp_per_frame
+            self.copy_prev_matrices()
+            if stats is not None:
+                w, h = self.cfg.image_res
+                n_pix = int(w * render_scale) * int(h * render_scale)
+                n_rays = spp_per_frame * n_pix * 2 * self.cfg.max_ray_depth
+                if sync_lag > 0 and on_frame is None:
+                    # An event recorded behind this frame's work completes
+                    # when the frame does (on the CPU it already has).
+                    done = None
+                    if self.device.type == "cuda":
+                        done = torch.cuda.Event()
+                        done.record(torch.cuda.current_stream(self.device))
+                    pending.append((self._frame, spp_per_frame, n_rays,
+                                    camera_is_moving, done))
+                    _drain(sync_lag)
+                else:
+                    sync(self.device)
+                    stats.record(
+                        self._frame, spp_per_frame,
+                        (time.perf_counter() - tf0) * 1e3,
+                        n_rays=n_rays, quiet=self.quiet,
+                        moving=camera_is_moving)
+            if on_frame is not None:
+                img = self.fetch_image(render_scale)
+                on_frame(i, img)
+        if stats is not None and pending:
+            _drain(0)
+        if on_frame is None and fetch_final:
+            img = self.fetch_image(1.0 if not camera_is_moving else 0.5)
+        return img

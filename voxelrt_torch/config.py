@@ -68,25 +68,21 @@ class RenderConfig:
     nee_transmittance: str = "center"  # 'center' | 'per_ray'
 
     # IN-KERNEL NEE: the traversal kernel converts a retired primary/bounce
-    # ray in place into its sun-cone shadow ray (sharing the queue slot and
-    # VMEM working set) instead of the renderer issuing a separate any-hit
-    # shadow dispatch per depth (ops/dda_pallas.py, ``nee=``). Equality with
-    # the two-dispatch formulation is tested; applies on the unsorted Pallas
-    # path with a directional light and no ReSTIR (those keep the explicit
-    # dispatch).
-    # Default ON since the march-unroll kernel: wall-neutral pre-unroll,
-    # −9 ms/spp with it (the conversion/refill machinery amortizes over the
-    # unrolled advances and the fused dispatch drops the shadow-wavefront
-    # staging buffers; bench.py A/B 86.3 → 77.1 ms/spp on example6 @720p).
+    # ray in place into its sun-cone shadow ray instead of the renderer
+    # issuing a separate any-hit shadow dispatch per depth (``nee=`` of
+    # ops/dda_kernel.raytrace). The JAX package tests equality with the
+    # two-dispatch formulation. The port reads it: True is the only value it
+    # runs, False raises NotImplementedError (the explicit shadow dispatch is
+    # not ported).
     nee_in_kernel: bool = True
 
     # Traversal bound (renderer/raytracer.py:103).
     max_dda_advances: int = 512
 
-    # Traversal backend: the Pallas VMEM kernel (ops/dda_pallas.py) or the
-    # portable XLA implementation (ops/dda.py). Auto-selected by the app
-    # shell: Pallas on TPU, portable elsewhere. `pallas_interpret` runs the
-    # kernel in interpreter mode (CPU tests of the production path).
+    # Traversal backend of the JAX package: its Pallas kernel
+    # (ops/dda_pallas.py) or its portable XLA implementation (ops/dda.py);
+    # `pallas_interpret` runs that kernel in interpreter mode. The port
+    # accepts and ignores both: it always has the kernel path's semantics.
     use_pallas_dda: bool = False
     pallas_interpret: bool = False
 
@@ -102,66 +98,42 @@ class RenderConfig:
     material_features: tuple = ()
 
     # Sort incoherent (bounce/shadow) rays by origin-cell morton code before
-    # dispatching the Pallas kernel: terminated lanes compact to the back
-    # (whole blocks exit after one iteration) and live blocks become
-    # spatially tight. Default OFF since block_rows=24: the kernel now
-    # absorbs tile-ordered wavefronts well enough that the four 7.4M-lane
-    # multi-payload route/unroute sorts per depth cost more than they save
-    # (measured 188.7 vs 204.0 ms/spp on example6 @720p x8 samples,
-    # PERF_NOTES.md round-2 frame dissection).
+    # dispatching the traversal kernel, so that terminated lanes compact to
+    # the back and live blocks become spatially tight. Default OFF in the
+    # JAX package. The port reads it: True raises NotImplementedError
+    # (sorted routing is not ported).
     sort_rays: bool = False
 
-    # Sublane rows of rays per traversal-kernel block (multiple of 8). The
-    # kernel's iteration is a serial vector dependency chain; R rows per
-    # block interleave R independent chains on the VPU (latency hiding) at
-    # the cost of straggler coupling. Tuned on v5e (tools/trace_bench.py,
-    # example6 scene): 8→16→24 is +42%/+13% on sorted bounce rays and
-    # +64%/+9% on primary; 32 plateaus (bounce regresses) and roughly
-    # doubles the Mosaic compile time again. The env override exists for
-    # the CPU-interpret test suite, where wide blocks only pad tiny ray
-    # sets (tests/conftest.py pins 8).
+    # Rows of rays per block of the JAX package's traversal kernel (a
+    # multiple of 8): a scheduling knob of that kernel, per-ray results do
+    # not depend on it. The env override exists for the JAX package's
+    # CPU-interpret tests, where wide blocks only pad tiny ray sets
+    # (tests/conftest.py pins 8). The port accepts and ignores it (one
+    # thread per ray).
     dda_block_rows: int = int(os.environ.get("VOXELRT_DDA_BLOCK_ROWS", "24"))
 
     # (The v4 kernel's dda_mask_group_words knob is gone: the v5 kernel's
     # mask fetch is one full static scan over the rank-compressed mixed-cell
     # table — see ops/accel.py — with no grouping machinery to tune.)
 
-    # QUEUED WAVEFRONT (kernel v6): each (row, lane) slot of an INCOHERENT
-    # dispatch (bounce/shadow) holds a queue of this many rays and reloads
-    # in place as rays retire, amortizing lock-step straggler pacing
-    # (example6 bounce rays: mean 10.7 advances vs 82.6 block max). Tuned on
-    # v5e: depth 16 + refill cadence 3 lifts tile-order bounce 44.6 → 78.8
-    # Mrays/s and sun shadow ~85 → ~125 (tools/trace_bench.py --queue);
-    # depth 32 adds ~2% frame (bounce 81.2) and ships. The queue also
-    # MONETIZES the sun-open NEE certificate (wall-neutral pre-queue):
-    # early-retired shadow rays now free their slot for a refill —
-    # measured +13% on the sun-shadow load. Coherent primary rays bypass
-    # the queue (no straggler spread to hide). 1 disables.
+    # QUEUED WAVEFRONT of the JAX package's traversal kernel: each slot of
+    # an incoherent dispatch (bounce/shadow) holds a queue of this many rays
+    # and reloads in place as rays retire, amortizing lock-step straggler
+    # pacing; 1 disables. `dda_refill_every` is the refill cadence in loop
+    # iterations. Both schedule that kernel's work and leave per-ray results
+    # unchanged; the port accepts and ignores them.
     dda_queue_depth: int = int(os.environ.get("VOXELRT_DDA_QUEUE", "32"))
-    # Refill cadence 2 since the single-region refill (round 5): with the
-    # write+carry chains merged and the NEE conversion deduplicated, more
-    # frequent refills (less retired-slot idling) win — full 512-spp runs
-    # read 15.86 / 16.00 / 16.36 s at cadence 2 / 3 / 4 on example6 @720p.
     dda_refill_every: int = 2
 
-    # Grid advances per kernel loop iteration (march unroll): extra
-    # march-only segments re-gather occupancy and advance again within one
-    # iteration, amortizing the per-iteration fixed cost (scalar liveness
-    # reduce, state pack/unpack, fetch-branch dispatch, refill
-    # select-chains) over several grid steps. Per-ray results are bitwise
-    # identical (rays at occupied cells just stall until the next fetch
-    # round). Tuned on v5e (tools/trace_bench.py --unroll, example6):
-    # 1→2 lifts tile-order bounce 91.9 → 107.2 Mrays/s and primary
-    # 110 → 143. Since refill cadence 2 (round 5) the sweet spot is
-    # SCENE-CLASS dependent: open sun-lit scenes read 30.5 / 31.0 / 30.9
-    # ms/spp at unroll 3 / 2 / 4 (example6, two confirming full runs
-    # each for 2 and 3) but the enclosed example9 interior prefers 2
-    # (65.3 vs 67.0 at 3 — interiors are fetch-round-bound, and unroll 3
-    # defers fetch opportunities to every third advance). 'auto' (the
-    # default) resolves by the same sun-openness statistic that gates
-    # dda_nee_src_open (app/headless.prepare_data): ≥15% sun-open cells ⇒
-    # 3, else 2; callers that construct RenderConfig directly without the
-    # app shell resolve 'auto' to 3 (the open-scene value) at trace time.
+    # Grid advances per loop iteration of the JAX package's traversal
+    # kernel (march unroll), and its fetch cadence. Per-ray results are
+    # bitwise identical at any value (rays at occupied cells just stall
+    # until the next fetch round). 'auto' (the default) resolves by the same
+    # sun-openness statistic that gates dda_nee_src_open
+    # (app/headless.prepare_data): ≥15% sun-open cells ⇒ 3, else 2; callers
+    # that construct RenderConfig directly without the app shell resolve
+    # 'auto' to 3. The port resolves 'auto' the same way, so configs stay
+    # one to one, and its kernel ignores the result.
     dda_march_unroll: object = "auto"  # 'auto' | int ≥ 1
     dda_fetch_cadence: int = 1
 
@@ -170,15 +142,15 @@ class RenderConfig:
     # becomes a dual-table scan), 'half' only on the unrolled march
     # segments (halves the dual-gather cost; a certified shadow ray
     # retires ≤1 advance later — outputs identical), 'off' disables the
-    # early-out. Pure scheduling knob; per-ray results are unchanged.
-    # Measured on example6 @720p: half 33.35 / off 33.41 / all 33.90
-    # ms/spp — the certificate still pays, at half its gather cost.
+    # early-out. Pure scheduling knob; per-ray results are unchanged. The
+    # port accepts and ignores it (its kernel has no sun-open early-out).
     dda_sun_mode: str = "half"  # 'all' | 'half' | 'off'
 
     # In-cell DDA unroll length per fetch round (9 = the longest monotone
     # voxel path through a 4³ cell resolves in one fetch; shorter unrolls
     # run fewer mask tests per fetch but re-fetch rays that cross a cell
     # in more steps — the resolve is resumable either way, results exact).
+    # The port accepts and ignores it.
     dda_resolve_steps: int = 9
 
     # Conversion-time sun-open retirement for in-kernel NEE shadow rays: a
@@ -189,58 +161,50 @@ class RenderConfig:
     # identical (the certificate guarantees the march could only end
     # 'visible'; equality test in tests/test_dda_pallas.py). 'auto'
     # resolves by the scene's sun-open cell fraction at setup (open scenes
-    # on, enclosed interiors off — the extra per-refill gather has nothing
-    # to retire there).
+    # on, enclosed interiors off). The port resolves 'auto' the same way and
+    # its kernel ignores the result.
     dda_nee_src_open: str = "auto"  # 'auto' | 'on' | 'off'
 
     # Escape-sky fetch estimator: 'stochastic' picks ONE bilinear corner
     # per sample with probability equal to its bilinear weight — unbiased
     # (the fetch is linear in texel values) and the same per-sample dither
     # role as the reference's random direction jitter, which at the
-    # default 1024² skybox already spans ~1.75 texels. The route sort then
-    # carries texel ids only, the Pallas fetch reads one corner instead of
-    # four, and the unroute carries the packed texel words losslessly.
-    # 'bilinear' restores the reference's jittered 4-corner interpolation.
+    # default 1024² skybox already spans ~1.75 texels. The fetch kernel
+    # (B2) then reads one corner instead of four and returns the packed
+    # texel words losslessly. 'bilinear' is the reference's jittered
+    # 4-corner interpolation; the port raises NotImplementedError for it.
     sky_fetch: str = "stochastic"  # 'stochastic' | 'bilinear'
 
     # Per-sample uniform draws: 'pcg3d' derives each draw slot by hashing
     # (pixel key lo, pixel key hi, slot) with PCG3D (Jarzynski & Olano,
-    # JCGT 2020) — fully fused into consumers, no (n_draws, N) table in
-    # HBM. 'table' restores the vmapped-threefry draw table (the per-pixel
-    # BASE key stays threefry fold_in(sample key, pixel id) either way, so
-    # both modes are shard-invariant counter-based RNG; the reference's
-    # ti.random() is a per-thread LCG, a weaker generator than either).
+    # JCGT 2020), with no (n_draws, N) table. 'table' is the JAX package's
+    # vmapped-threefry draw table (the per-pixel BASE key stays threefry
+    # fold_in(sample key, pixel id) either way, so both modes are
+    # shard-invariant counter-based RNG); the port raises
+    # NotImplementedError for it.
     rng_draws: str = "pcg3d"  # 'pcg3d' | 'table'
 
-    # Deferred-escape skybox fetch routing: True sorts the wavefront's
-    # escape texel ids so each (8,128) fetch-kernel block touches few VMEM
-    # slabs (two multi-payload 7.4M-lane lax.sorts); False dispatches the
-    # fetch in ray order and lets the kernel's slab loop absorb the
-    # scatter. Identical results — purely a routing choice; see
-    # PERF_NOTES.md for the measured tradeoff.
+    # Deferred-escape skybox fetch routing of the JAX package: True sorts
+    # the wavefront's escape texel ids before its fetch kernel; False
+    # dispatches the fetch in ray order. Identical results — purely a
+    # routing choice. The port accepts and ignores it (B2 fetches in ray
+    # order).
     sky_route_sort: bool = True
 
-    # Slice the escape-sky route/unroute sorts per sample: the deferred
-    # wavefront is sample-major (samples_per_launch contiguous slices,
-    # pipeline.py), so sorting it as (k, n/k) rows costs log2(n/k)-squared
-    # bitonic passes instead of log2(n)-squared (~30% fewer at k=16) with
-    # bitwise-identical output (exact per-lane fetch; per-slice unroute is
-    # a permutation). Measured on v5e (PERF_NOTES round-4 session 3): a
-    # small LOSS at 720p×spl16 (14.7M lanes — the fetch kernel's coarser
-    # per-slice texel clustering costs more slab rounds than the shorter
-    # sorts save) but a WIN at 1080p×spl16 (33M lanes: 75.4 → 74.3 ms/spp)
-    # and at spl=32. 'auto' (default) slices when the wavefront exceeds
-    # 24M lanes; True/'on' and False/'off' force it.
+    # Slice the JAX package's escape-sky route/unroute sorts per sample,
+    # with bitwise-identical output (exact per-lane fetch; per-slice unroute
+    # is a permutation). 'auto' (default) slices when the wavefront exceeds
+    # 24M lanes; True/'on' and False/'off' force it. The port accepts and
+    # ignores it (it does not sort).
     sky_sort_sliced: object = "auto"  # 'auto' | True/'on' | False/'off'
 
     # Motion-phase reprojection backend: 'pallas' fuses the current-color
-    # bilinear + gated history taps into one VMEM-resident kernel
-    # (ops/resample.py — replaces ~30 full-image XLA gathers per moving
-    # frame); 'xla' keeps the plain gather formulation (also the automatic
-    # fallback when the active-res tables exceed the kernel's VMEM budget).
-    # The Pallas path stores motion-phase sources as bf16 (≈0.4%%): motion
-    # history caps at 50 frames and resets on stop, so converged stills are
-    # unaffected.
+    # bilinear + gated history taps into one kernel (ops/resample.py, B4)
+    # over bf16-packed sources (≈0.4% relative); 'xla' keeps the plain
+    # float32 gather formulation, which both packages also take when the
+    # active region exceeds 530,000 texels. Motion history caps at 50
+    # frames and resets on stop, so converged stills are unaffected. The
+    # port reads it (render/temporal._moving_taps).
     motion_resample: str = "pallas"  # 'pallas' | 'xla'
 
     # Vignette (renderer/pathtracer.py:32-34).
@@ -258,8 +222,8 @@ class RenderConfig:
     # Physical sky: static toggles — the reference stores them in 0-D fields
     # (scene.py:159-169) but they gate whole pipelines, so they are
     # trace-static here. The skybox resolution is 3840 in the reference
-    # (renderer/atmos.py:66-67); it is configurable here because the TPU
-    # build can trade precompute time/memory for fidelity.
+    # (renderer/atmos.py:66-67); it is configurable here to trade
+    # precompute time and memory for fidelity.
     use_physical_sky: bool = False
     use_clouds: bool = False
     skybox_res: int = 1024
@@ -274,13 +238,9 @@ class RenderConfig:
     cloud_accum_passes: int = 32
 
     # Reprojected-history tap filter while the camera moves: 'catmullrom'
-    # (the reference's 4×4, renderer/pathtracer.py:1092-1183) or 'bilinear'
-    # (2×2). With the fused Pallas resample kernel (ops/resample.py) the
-    # reference filter fits the interactive budget (87 ms/frame moving at
-    # 720p on v5e vs 80 for bilinear), so it is the default again; the
-    # round-2 bilinear downgrade only existed because each tap was a
-    # full-image XLA gather. Converged still images are identical either
-    # way (motion history caps at 50 and resets on stop).
+    # (the reference's 4×4, renderer/pathtracer.py:1092-1183, the default)
+    # or 'bilinear' (2×2). Converged still images are identical either way
+    # (motion history caps at 50 and resets on stop). The port reads it.
     motion_filter: str = "catmullrom"
 
     # Number of path samples traced per accumulate() call per pixel.

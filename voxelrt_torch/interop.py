@@ -3,12 +3,14 @@
 ``from_jax_arrays`` takes the fields of the JAX package's ``SceneData`` and
 ``RenderParams`` as numpy arrays (``np.asarray`` of each JAX array; this
 module never imports JAX) and returns the port's ``SceneData`` and
-``RenderParams`` on ``device``. Tests use it to feed both packages the same
-inputs; it is also how a sky that the JAX package precomputed reaches the
+``RenderParams`` on ``device``; ``render_state_from_jax`` does the same for
+a ``RenderState``. Tests use them to feed both packages the same inputs; it is also how a sky that the JAX package precomputed reaches the
 port before the sky precompute is ported.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -16,6 +18,7 @@ import torch
 from voxelrt_torch.ops.accel import PallasTables
 from voxelrt_torch.ops.dda_kernel import upload_tables
 from voxelrt_torch.render.pathtracer import RenderParams, SceneData
+from voxelrt_torch.render.pipeline import RenderState
 from voxelrt_torch.sky.atmos import SkyData
 
 
@@ -62,3 +65,20 @@ def from_jax_arrays(scene: dict, params: dict, device):
         p[f] = torch.tensor(a.astype(np.int32 if dt == torch.int32
                                      else np.float32), device=device)
     return sd, RenderParams(**p)
+
+
+def render_state_from_jax(state: dict, device) -> RenderState:
+    """state: mapping of the JAX package's RenderState fields as numpy
+    arrays (``reservoirs`` is not carried). The u32 ``gbuff_mat_id`` words
+    become int64, the f16 normals stay f16, ``spp`` and ``frame`` become
+    ints. Returns the port's RenderState on ``device``."""
+    out = {}
+    for f in dataclasses.fields(RenderState):
+        a = np.asarray(state[f.name])
+        if f.name in ("spp", "frame"):
+            out[f.name] = int(a)
+        elif f.name == "gbuff_mat_id":
+            out[f.name] = torch.tensor(a.astype(np.int64), device=device)
+        else:
+            out[f.name] = torch.tensor(a, device=device)
+    return RenderState(**out)

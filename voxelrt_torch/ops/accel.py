@@ -45,15 +45,10 @@ v5 layout (rank-compressed; for grid_res = 128 — general powers of two up to
   * cell_colors   u32[n_occ*64]    packed voxel words (r|g<<8|b<<16|mat<<24)
                                    of OCCUPIED cells only, MORTON-rank
                                    cell-major so a hit fetch is one lane
-                                   read at occ_rank*64 + local (v4 stored
-                                   all 128³ voxels = 8 MB VMEM; example6
+                                   read at occ_rank*64 + local (example6
                                    compresses 2 M voxel words → 403 K).
-                                   Morton rank order matters: compressing in
-                                   z-major rank order scattered a block's
-                                   hit colors across ~100 distinct (8,128)
-                                   slabs (measured, tools/trace_bench.py
-                                   --debug); the morton curve keeps a
-                                   3-D-local hit set in a handful.
+                                   Morton rank order keeps a 3-D-local hit
+                                   set close together in the table.
   * palette mode  real scenes use few DISTINCT voxel words (example6: 771 —
                                    procedural palettes quantized to 8-bit
                                    channels). When a scene has ≤ 1024

@@ -1,5 +1,6 @@
 """Bit-packing codecs (octahedral normals, material words) — the PyTorch
-port of the SoA half of voxelrt/ops/packing.py that the render path uses.
+port of the parts of voxelrt/ops/packing.py that the render path uses: the
+SoA forms for the wavefront, the packed-image forms for the temporal filters.
 
 The G-buffer stores octahedral f16 normals whose quantization is part of the
 reference image (renderer/pathtracer.py:113,404). Packed material words are
@@ -10,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from voxelrt_torch.ops.v3 import V3, vnormalize
+from voxelrt_torch.ops.v3 import V3
 
 
 def encode_unit_vector_3x16_soa(v: V3):
@@ -29,6 +30,13 @@ def encode_unit_vector_3x16_soa(v: V3):
     return ex.to(torch.float16), ey.to(torch.float16)
 
 
+def encode_unit_vector_3x16(v):
+    """encode_unit_vector_3x16_soa on a packed (..., 3) tensor; returns a
+    packed (..., 2) f16 tensor."""
+    return torch.stack(encode_unit_vector_3x16_soa(
+        V3(v[..., 0], v[..., 1], v[..., 2])), dim=-1)
+
+
 def decode_unit_vector_3x16(e):
     """renderer/math_utils.py:209-215 on a packed (..., 2) f16 tensor;
     returns a packed (..., 3) f32 tensor."""
@@ -39,8 +47,8 @@ def decode_unit_vector_3x16(e):
     t = torch.clamp(-z, min=0.0)
     x = x + torch.where(x >= 0.0, -t, t)
     y = y + torch.where(y >= 0.0, -t, t)
-    v = vnormalize(V3(x, y, z))
-    return torch.stack([v.x, v.y, v.z], dim=-1)
+    inv = torch.rsqrt(torch.clamp(x * x + y * y + z * z, min=1e-20))
+    return torch.stack([x * inv, y * inv, z * inv], dim=-1)
 
 
 def _u8(c):
@@ -65,3 +73,10 @@ def decode_material_word_soa(enc):
         ((enc >> 24) & 0xFF).to(torch.float32) / 255.0,
     )
     return mat_id, albedo
+
+
+def decode_material_word(enc):
+    """decode_material_word_soa on a word image; returns (mat_id i32,
+    albedo f32 (..., 3))."""
+    mat_id, albedo = decode_material_word_soa(enc)
+    return mat_id, torch.stack(list(albedo), dim=-1)

@@ -29,6 +29,12 @@ def linearize_depth(depth, inv_proj):
     return 1.0 / ((depth * 2.0 - 1.0) * inv_proj[3, 2] + inv_proj[3, 3])
 
 
+def delinearize_depth(lin_depth, proj):
+    """renderer/space_transformations.py:10-12."""
+    safe = torch.where(lin_depth == 0.0, 1e-20, lin_depth)
+    return ((-safe * proj[2, 2] + proj[2, 3]) / -safe) * -0.5 + 0.5
+
+
 def screen_to_view(uv, depth, inv_proj):
     """renderer/space_transformations.py:14-20 — depth is non-linear [0,1]."""
     ndc = torch.stack(
@@ -40,9 +46,20 @@ def screen_to_view(uv, depth, inv_proj):
     return pos[..., :3] / pos[..., 3:4]
 
 
+def view_to_screen(view_pos, proj):
+    """renderer/space_transformations.py:22-26."""
+    pos = apply_mat4(proj, view_pos, 1.0)
+    return (pos[..., :3] / pos[..., 3:4]) * 0.5 + 0.5
+
+
 def view_to_world(pos, inv_view, is_position=1.0):
     """renderer/space_transformations.py:28-30."""
     return apply_mat4(inv_view, pos, is_position)[..., :3]
+
+
+def world_to_view(pos, view, is_position=1.0):
+    """renderer/space_transformations.py:32-34."""
+    return apply_mat4(view, pos, is_position)[..., :3]
 
 
 def _apply_mat4_soa(m, v: V3, w):

@@ -1,9 +1,11 @@
 """Renderer: buffer state + the progressive accumulate step (the PyTorch port
-of voxelrt/render/pipeline.py, still-frame path).
+of voxelrt/render/pipeline.py), for still and for moving frames.
 
 All frame-persistent buffers live in an explicit :class:`RenderState`;
 ``accumulate`` mirrors renderer/pathtracer.py:1310-1319 (render -> temporal
-prepass -> temporal filter -> specular temporal filter). ``accumulate_n``
+prepass -> temporal filter -> specular temporal filter). With
+``render_scale`` below 1 only the active top-left region is traced and
+filtered; the rest of every buffer keeps its old contents. ``accumulate_n``
 is a Python loop of launches. The JAX package's arrays are immutable; here
 each launch builds new buffers and drops the old ones, so no state is
 shared between a caller's RenderState and the next one.
@@ -61,6 +63,15 @@ def init_state(cfg, device) -> RenderState:
         gbuff_prev_normals=f(w, h, 2, dtype=torch.float16))
 
 
+def reset_framebuffer(state: RenderState) -> RenderState:
+    """renderer/pathtracer.py:664-668: restart the accumulation; the
+    G-buffers and the frame counter stay."""
+    return dataclasses.replace(
+        state, history=torch.zeros_like(state.history),
+        history_spec=torch.zeros_like(state.history_spec),
+        history_spec_depth=torch.zeros_like(state.history_spec_depth), spp=0)
+
+
 TILE_W, TILE_H = 16, 8  # the reference's interleave (pathtracer.py:71-81)
 
 
@@ -95,15 +106,22 @@ def _untile(w, h, x):
     return x.reshape((w, h) + rest)
 
 
-def wavefront_constants(cfg, device):
-    """Per-launch constants derived from the flat ray index: the pixel
-    (u, v) of each of the k·n rays and the sample each ray belongs to."""
+def active_res(cfg, render_scale):
+    """The traced top-left region (aw, ah) at ``render_scale``."""
     w, h = cfg.image_res
+    return max(int(w * render_scale), 1), max(int(h * render_scale), 1)
+
+
+def wavefront_constants(cfg, render_scale, device):
+    """Per-launch constants derived from the flat ray index over the ACTIVE
+    aw×ah grid: the pixel (u, v) of each of the k·n rays and the sample
+    each ray belongs to."""
+    aw, ah = active_res(cfg, render_scale)
     k = max(1, cfg.samples_per_launch)
-    n = w * h
+    n = aw * ah
     ridx = torch.arange(k * n, dtype=torch.int64, device=device)
     s_of_ray = ridx // n
-    u, v = _pixel_uv_from_index(w, h, ridx - s_of_ray * n)
+    u, v = _pixel_uv_from_index(aw, ah, ridx - s_of_ray * n)
     return u, v, s_of_ray
 
 
@@ -118,17 +136,23 @@ def sample_keys_of(key, k_samples):
 def accumulate(cfg, scene, params, state: RenderState, key,
                camera_is_moving: bool = False, render_scale: float = 1.0,
                wf=None) -> RenderState:
-    """One progressive frame for every pixel: ``cfg.samples_per_launch``
-    path samples traced as ONE wavefront of k·n rays, averaged, and blended
-    into the history with weight k (renderer/pathtracer.py:1310-1319)."""
-    if camera_is_moving or render_scale != 1.0:
-        raise NotImplementedError("moving frames / render scaling are port "
-                                  "slice 2")
+    """One progressive frame for every active pixel:
+    ``cfg.samples_per_launch`` path samples traced as ONE wavefront of k·n
+    rays, averaged, and blended into the history with weight k
+    (renderer/pathtracer.py:1310-1319).
+
+    Render scaling traces ONLY the active-res wavefront and embeds the
+    results into the top-left of the full-res buffers (the reference masks
+    out-of-area threads instead, renderer/pathtracer.py:289-291). Pixel ids,
+    and so the per-pixel random streams, are unchanged."""
     w, h = cfg.image_res
+    aw, ah = active_res(cfg, render_scale)
+    scaled = (aw, ah) != (w, h)
     dev = state.color.device
     k = max(1, cfg.samples_per_launch)
-    n = w * h
-    u, v, s_of_ray = wf if wf is not None else wavefront_constants(cfg, dev)
+    n = aw * ah
+    u, v, s_of_ray = wf if wf is not None else wavefront_constants(
+        cfg, render_scale, dev)
     skeys, jit = sample_keys_of(key, k)
     k0 = torch.tensor([sk[0] for sk in skeys], dtype=torch.int64, device=dev)
     k1 = torch.tensor([sk[1] for sk in skeys], dtype=torch.int64, device=dev)
@@ -136,7 +160,8 @@ def accumulate(cfg, scene, params, state: RenderState, key,
                       device=dev)
     out = trace_sample(cfg, scene, params, u, v,
                        (k0[s_of_ray], k1[s_of_ray]),
-                       (ju[s_of_ray, 0], ju[s_of_ray, 1]))
+                       (ju[s_of_ray, 0], ju[s_of_ray, 1]),
+                       camera_is_moving, render_scale)
 
     def sample_mean(x):
         acc = x[:n]
@@ -150,8 +175,16 @@ def accumulate(cfg, scene, params, state: RenderState, key,
     def img(x):
         if isinstance(x, tuple):  # V3 or the octahedral normal pair
             return torch.stack([img(c) for c in x], dim=-1)
-        return _untile(w, h, x[:n])
+        a = _untile(aw, ah, x[:n])
+        if not scaled:
+            return a
+        full = torch.zeros((w, h) + tuple(a.shape[2:]), dtype=a.dtype,
+                           device=dev)
+        full[:aw, :ah] = a
+        return full
 
+    # Out-of-area pixels keep their previous buffers (the reference's
+    # is_outside_render_area contract): there the embedded mask is False.
     inside = img(out["inside"])
 
     def sel(new, old):
@@ -167,6 +200,8 @@ def accumulate(cfg, scene, params, state: RenderState, key,
                              state.gbuff_depth_reflection),
         position=sel(img(out["gbuff_position"]), state.gbuff_position),
         mat_id=sel(img(out["gbuff_mat_id"]), state.gbuff_mat_id),
+        prev_depth=state.gbuff_prev_depth,
+        prev_normals=state.gbuff_prev_normals,
     )
     del out
 
@@ -175,13 +210,13 @@ def accumulate(cfg, scene, params, state: RenderState, key,
     gbuffer["depth_reflection"] = refl_depth
 
     color, history = temporal.temporal_filter(
-        cfg, params, color, state.history, gbuffer, render_scale, False,
-        sample_weight=float(k))
+        cfg, params, color, state.history, gbuffer, render_scale,
+        camera_is_moving, sample_weight=float(k))
     color, history_spec, history_spec_depth = \
         temporal.temporal_filter_specular(
             cfg, params, color, color_spec, state.history_spec,
-            state.history_spec_depth, gbuffer, render_scale, False,
-            sample_weight=float(k))
+            state.history_spec_depth, gbuffer, render_scale,
+            camera_is_moving, sample_weight=float(k))
 
     return RenderState(
         color=color, color_spec=color_spec, history=history,
@@ -199,7 +234,7 @@ def accumulate_n(cfg, scene, params, state, key, camera_is_moving=False,
     """Accumulate ``n_samples`` path samples: ceil(n_samples /
     samples_per_launch) launches, launch i keyed by fold_in(key, i)."""
     k = max(1, cfg.samples_per_launch)
-    wf = wavefront_constants(cfg, state.color.device)
+    wf = wavefront_constants(cfg, render_scale, state.color.device)
     for i in range(-(-n_samples // k)):
         state = accumulate(cfg, scene, params, state, fold_in(key, i),
                            camera_is_moving, render_scale, wf=wf)

@@ -1,10 +1,15 @@
-"""Temporal accumulation for still frames (renderer/pathtracer.py:993-1303);
-the PyTorch port of the ``moving=False`` half of voxelrt/render/temporal.py.
+"""Temporal accumulation and filtering (renderer/pathtracer.py:993-1303); the
+PyTorch port of voxelrt/render/temporal.py.
 
 Progressive accumulation lives in per-pixel history buffers blended with
-1/history.w (an exponential average capped at ``max_accum_frames``). The
-moving-camera reprojection (Catmull-Rom history taps, kernel B4) is port
-slice 2; asking for it raises NotImplementedError.
+1/history.w (an exponential average capped at ``max_accum_frames``). While
+the camera moves, history is reprojected through the previous view/proj
+matrices with a Catmull-Rom 4×4 tap filter gated on depth/normal agreement;
+specular history reprojects the *virtual reflection point* instead of the
+primary hit (renderer/pathtracer.py:1242-1303). The moving-frame taps go
+through kernel B4 (ops/resample.py) or, for ``motion_resample='xla'`` and
+for active regions above its texel limit, through the f32 gather
+formulation (``_bilinear`` + ``_history_filter``).
 """
 
 from __future__ import annotations
@@ -12,8 +17,18 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from voxelrt_torch.ops import packing
+from voxelrt_torch.ops import resample as rs
+from voxelrt_torch.ops.resample import temporal_taps
 from voxelrt_torch.ops.sampling import mix
-from voxelrt_torch.ops.transforms import screen_to_view, view_to_world
+from voxelrt_torch.ops.transforms import (
+    delinearize_depth,
+    linearize_depth,
+    screen_to_view,
+    view_to_screen,
+    view_to_world,
+    world_to_view,
+)
 
 
 def _window_sum(img, active_w, active_h):
@@ -33,7 +48,9 @@ def _window_sum(img, active_w, active_h):
 def temporal_prepass(cfg, color, color_spec, refl_depth, render_scale):
     """renderer/pathtracer.py:1020-1075 — returns (color, color_spec,
     refl_depth) with NaN scrubbing applied. The JAX version also returns the
-    specular 4×4 mean and deviation, which no still-frame filter reads."""
+    specular 4×4 mean and deviation; neither its still nor its moving
+    filters read them (voxelrt/render/temporal.py:294-408), so the port
+    does not compute them."""
     w, h = cfg.image_res
     aw = max(int(w * render_scale), 1)
     ah = max(int(h * render_scale), 1)
@@ -67,51 +84,287 @@ def _pixel_texcoords(cfg, render_scale, device):
     return torch.stack([tx, ty], dim=-1)
 
 
-def _skip_mask(cfg, params, gbuffer, render_scale):
-    """Pixels whose reconstructed primary position is the origin (sky)."""
+def _gather2d(img, xi, yi, bx, by):
+    """img[(W,H) or (W,H,C)][xi, yi], indices clamped to [0, bx) × [0, by):
+    callers clamp to the ACTIVE region so edge taps never read the stale
+    out-of-area remainder of the full-res buffer."""
+    h = img.shape[1]
+    xi = torch.clamp(xi, 0, bx - 1)
+    yi = torch.clamp(yi, 0, by - 1)
+    return img.reshape((-1,) + tuple(img.shape[2:]))[xi * h + yi]
+
+
+def _catmullrom(x):
+    """renderer/pathtracer.py:1002-1014."""
+    x2 = x * x
+    x3 = x2 * x
+    f1 = 1.5 * x3 - 2.5 * x2 + 1.0
+    f2 = -0.5 * x3 + 2.5 * x2 - 4.0 * x + 2.0
+    return torch.where(x < 1.0, f1, torch.where(x < 2.0, f2, 0.0))
+
+
+def reproject(world_pos, prev_view, prev_proj):
+    """renderer/pathtracer.py:993-1000."""
+    return view_to_screen(world_to_view(world_pos, prev_view), prev_proj)
+
+
+def _floor_index(f):
+    """floor(f) as an index tensor. Non-finite coordinates (sky pixels
+    reproject to NaN) become far out of bounds, where every tap has zero
+    weight; the JAX package's float-to-int conversion leaves them out of
+    bounds or at zero weight as well."""
+    return torch.floor(torch.where(torch.isfinite(f), f, -1.0e9)).to(
+        torch.int64)
+
+
+def _history_filter(cfg, history, prev_depth, prev_normals, uv, center_depth,
+                    center_normal, proj_inv, render_scale, moving,
+                    gate_depth=True, extra=None):
+    """Reprojected history fetch with validity gating
+    (renderer/pathtracer.py:1092-1183), the f32 gather formulation.
+    ``extra`` optionally filters a second scalar buffer (specular reflection
+    depth history) alongside. Returns (w_sum, filtered_color4,
+    filtered_extra). ``cfg.motion_filter`` selects the reference's
+    Catmull-Rom 4×4 or the 2×2 bilinear footprint."""
+    w, h = cfg.image_res
+    ires_x = int(w * render_scale)
+    ires_y = int(h * render_scale)
+    fcoord_x = uv[..., 0] * ires_x - 0.5
+    fcoord_y = uv[..., 1] * ires_y - 0.5
+    ix = _floor_index(fcoord_x)
+    iy = _floor_index(fcoord_y)
+    fx = fcoord_x - ix
+    fy = fcoord_y - iy
+
+    if cfg.motion_filter == "bilinear":
+        tap_range = range(0, 2)
+
+        def tap_w(o, f):
+            return torch.clamp(1.0 - torch.abs(o - f), min=0.0)
+    else:
+        tap_range = range(-1, 3)
+
+        def tap_w(o, f):
+            return _catmullrom(torch.abs(o - f))
+
+    def full(shape, v):
+        return torch.full(shape, v, dtype=torch.float32, device=uv.device)
+
+    shp = tuple(uv.shape[:-1])
+    col_sum = full(shp + (4,), 0.0)
+    col_min = full(shp + (4,), 999999.0)
+    col_max = full(shp + (4,), 0.0)
+    d_sum, d_min, d_max = full(shp, 0.0), full(shp, 999999.0), full(shp, 0.0)
+    w_sum = full(shp, 0.0)
+
+    for ox in tap_range:
+        for oy in tap_range:
+            tx = ix + ox
+            ty = iy + oy
+            in_bounds = (tx >= 0) & (tx < ires_x) & (ty >= 0) & (ty < ires_y)
+            wgt = tap_w(ox, fx) * tap_w(oy, fy)
+            if moving:
+                tap_normal = packing.decode_unit_vector_3x16(
+                    _gather2d(prev_normals, tx, ty, ires_x, ires_y))
+                ok_n = torch.sum(center_normal * tap_normal, dim=-1) > 0.642
+                wgt = wgt * ok_n.to(torch.float32)
+                if gate_depth:
+                    tap_depth = linearize_depth(
+                        _gather2d(prev_depth, tx, ty, ires_x, ires_y),
+                        proj_inv)
+                    ok_d = (torch.abs(tap_depth - center_depth)
+                            / torch.clamp(torch.abs(center_depth),
+                                          min=1e-20)) < 0.05
+                    wgt = wgt * ok_d.to(torch.float32)
+            wgt = wgt * in_bounds.to(torch.float32)
+
+            col = _gather2d(history, tx, ty, ires_x, ires_y)
+            inb4 = in_bounds[..., None]
+            col_min = torch.where(inb4, torch.minimum(col_min, col), col_min)
+            col_max = torch.where(inb4, torch.maximum(col_max, col), col_max)
+            col_sum = col_sum + col * wgt[..., None]
+            if extra is not None:
+                ex = _gather2d(extra, tx, ty, ires_x, ires_y)
+                d_min = torch.where(in_bounds, torch.minimum(d_min, ex), d_min)
+                d_max = torch.where(in_bounds, torch.maximum(d_max, ex), d_max)
+                d_sum = d_sum + ex * wgt
+            w_sum = w_sum + wgt
+
+    safe_w = torch.where(torch.abs(w_sum) < 1e-20, 1e-20, w_sum)
+    col = col_sum / safe_w[..., None]
+    # anti-ringing (renderer/pathtracer.py:1130, 1181-1183); min(max(·)) so
+    # that a pixel with no in-bounds tap (lo > hi) gets hi, as jnp.clip
+    col = torch.maximum(
+        torch.minimum(torch.maximum(col, col_min), col_max),
+        torch.tensor([0.0, 0.0, 0.0, 1.0], device=uv.device))
+    if extra is not None:
+        ex = torch.minimum(torch.maximum(d_sum / safe_w, d_min), d_max)
+        return w_sum, col, ex
+    return w_sum, col, None
+
+
+def _bilinear(img, uv, ires_x, ires_y):
+    """renderer/pathtracer.py:1077-1090."""
+    fx = uv[..., 0] * ires_x - 0.5
+    fy = uv[..., 1] * ires_y - 0.5
+    ix = torch.floor(fx).to(torch.int64)
+    iy = torch.floor(fy).to(torch.int64)
+    f_x = (fx - ix)[..., None]
+    f_y = (fy - iy)[..., None]
+    bl = _gather2d(img, ix, iy, ires_x, ires_y)
+    br = _gather2d(img, ix + 1, iy, ires_x, ires_y)
+    tl = _gather2d(img, ix, iy + 1, ires_x, ires_y)
+    tr = _gather2d(img, ix + 1, iy + 1, ires_x, ires_y)
+    return mix(mix(bl, br, f_x), mix(tl, tr, f_x), f_y)
+
+
+def _moving_taps(cfg, params, state_color, history, gbuffer, texcoord, rp,
+                 center_depth, center_n, render_scale, gate_depth,
+                 extra=None):
+    """Motion-phase resampling: current-color bilinear + gated history taps.
+
+    Dispatches to kernel B4 (ops/resample.temporal_taps) for
+    ``motion_resample='pallas'`` while the active region is within the
+    kernel path's texel limit, as the JAX package's kernel path does;
+    otherwise to the f32 gather path (_bilinear + _history_filter). The
+    choice never depends on the device. Returns (current, w_sum, hist,
+    extra_f)."""
+    w, h = cfg.image_res
+    aw = max(int(w * render_scale), 1)
+    ah = max(int(h * render_scale), 1)
+    if not (cfg.motion_resample == "pallas" and aw * ah <= rs.MAX_TEXELS):
+        current = _bilinear(state_color, texcoord, aw, ah)
+        w_sum, hist, extra_f = _history_filter(
+            cfg, history, gbuffer["prev_depth"], gbuffer["prev_normals"],
+            rp[..., 0:2], center_depth, center_n, params.proj_inv,
+            render_scale, moving=True, gate_depth=gate_depth, extra=extra)
+        return current, w_sum, hist, extra_f
+
+    cur = state_color[:aw, :ah].reshape(-1, 3)
+    cur_packed = torch.stack([
+        rs.pack2_bf16(cur[:, 0], cur[:, 1]),
+        rs.pack2_bf16(cur[:, 2], torch.zeros_like(cur[:, 2])),
+    ])
+    hsrc = history[:aw, :ah].reshape(-1, 4)
+    hist_packed = torch.stack([
+        rs.pack2_bf16(hsrc[:, 0], hsrc[:, 1]),
+        rs.pack2_bf16(hsrc[:, 2], hsrc[:, 3]),
+    ])
+    pnsrc = gbuffer["prev_normals"][:aw, :ah].to(torch.float32)
+    pn_packed = rs.pack2_bf16(pnsrc[..., 0].reshape(-1),
+                              pnsrc[..., 1].reshape(-1))
+    pd_lin = None
+    if gate_depth:
+        pd_lin = linearize_depth(gbuffer["prev_depth"][:aw, :ah],
+                                 params.proj_inv).reshape(-1)
+    ex = extra[:aw, :ah].reshape(-1) if extra is not None else None
+
+    fxc = (texcoord[..., 0] * aw - 0.5).reshape(-1)
+    fyc = (texcoord[..., 1] * ah - 0.5).reshape(-1)
+    fxh = (rp[..., 0] * aw - 0.5).reshape(-1)
+    fyh = (rp[..., 1] * ah - 0.5).reshape(-1)
+    current, w_sum, hist, extra_f = temporal_taps(
+        cur_packed, hist_packed, pn_packed, pd_lin, ex,
+        fxc, fyc, fxh, fyh, center_depth.reshape(-1).contiguous(),
+        center_n.reshape(-1, 3).contiguous(),
+        ires_x=aw, ires_y=ah,
+        catmullrom=cfg.motion_filter != "bilinear", gate_depth=gate_depth)
+    current = current.reshape(w, h, 3)
+    w_sum = w_sum.reshape(w, h)
+    hist = hist.reshape(w, h, 4)
+    if extra_f is not None:
+        extra_f = extra_f.reshape(w, h)
+    return current, w_sum, hist, extra_f
+
+
+def _center(cfg, params, gbuffer, render_scale):
+    """Per-pixel texcoords, the primary hit reconstructed from the G-buffer
+    depth, and the mask of pixels whose position is the origin (sky)."""
     texcoord = _pixel_texcoords(cfg, render_scale, gbuffer["depth"].device)
     x1 = view_to_world(screen_to_view(texcoord, gbuffer["depth"],
                                       params.proj_inv), params.view_inv)
-    return (x1[..., 0] * x1[..., 0] + x1[..., 1] * x1[..., 1]
+    skip = (x1[..., 0] * x1[..., 0] + x1[..., 1] * x1[..., 1]
             + x1[..., 2] * x1[..., 2]) < 1e-7
+    return texcoord, x1, skip
 
 
-def _blend(hist, current, sample_weight, max_accum):
+def _blend(hist, current, w_sum, sample_weight, max_accum):
+    """History advanced by this frame's samples where a pixel has history
+    (``w_sum`` None: everywhere), else restarted from the current colour.
+    Returns (hist_out, has_hist, new_w)."""
     new_w = torch.minimum(hist[..., 3] + sample_weight, max_accum)
     blended = mix(hist[..., 0:3], current[..., 0:3],
                   (sample_weight / new_w)[..., None])
-    return torch.cat([blended, new_w[..., None]], dim=-1), new_w
+    hist_out = torch.cat([blended, new_w[..., None]], dim=-1)
+    if w_sum is None:
+        return hist_out, None, new_w
+    has_hist = w_sum > 1e-3
+    fresh = torch.cat([current[..., 0:3],
+                       torch.full_like(new_w, sample_weight)[..., None]],
+                      dim=-1)
+    return torch.where(has_hist[..., None], hist_out, fresh), has_hist, new_w
 
 
 def temporal_filter(cfg, params, state_color, history, gbuffer,
                     render_scale, moving, sample_weight: float = 1.0):
-    """Diffuse temporal filter (renderer/pathtracer.py:1185-1230), still
-    camera. Returns (new_color, new_history). ``sample_weight`` is the
-    number of fresh samples averaged into ``state_color`` this frame."""
+    """Diffuse temporal filter (renderer/pathtracer.py:1185-1230).
+    Returns (new_color, new_history). ``sample_weight`` is the number of
+    fresh path samples averaged into ``state_color`` this frame; the history
+    weight advances by it so the accumulation stays an exact running mean."""
+    texcoord, center_x1, skip = _center(cfg, params, gbuffer, render_scale)
     if moving:
-        raise NotImplementedError("moving-frame reprojection is port slice 2")
-    skip = _skip_mask(cfg, params, gbuffer, render_scale)
-    hist_out, _ = _blend(history, state_color, sample_weight,
-                         params.max_accum_frames)
+        center_n = packing.decode_unit_vector_3x16(gbuffer["normals"])
+        rp = reproject(center_x1, params.prev_view, params.prev_proj)
+        current, w_sum, hist, _ = _moving_taps(
+            cfg, params, state_color, history, gbuffer, texcoord, rp,
+            linearize_depth(rp[..., 2], params.proj_inv), center_n,
+            render_scale, gate_depth=True)
+    else:
+        current, w_sum, hist = state_color, None, history
+
+    hist_out, _, _ = _blend(hist, current, w_sum, sample_weight,
+                            params.max_accum_frames)
+    out_color = hist_out[..., 0:3]
+    if moving:
+        # re-modulate by the stored albedo (renderer/pathtracer.py:1223-1228)
+        _, albedo = packing.decode_material_word(gbuffer["mat_id"])
+        out_color = out_color * albedo
+
     new_history = torch.where(skip[..., None], history, hist_out)
-    new_color = torch.where(skip[..., None], state_color, hist_out[..., 0:3])
+    new_color = torch.where(skip[..., None], state_color, out_color)
     return new_color, new_history
 
 
 def temporal_filter_specular(cfg, params, color, color_spec, history_spec,
                              history_spec_depth, gbuffer, render_scale, moving,
                              sample_weight: float = 1.0):
-    """Specular temporal filter (renderer/pathtracer.py:1242-1303), still
-    camera. Returns (color_with_specular, new_history_spec,
-    new_history_spec_depth)."""
-    if moving:
-        raise NotImplementedError("moving-frame reprojection is port slice 2")
-    skip = _skip_mask(cfg, params, gbuffer, render_scale)
-    hist_out, new_w = _blend(history_spec, color_spec, sample_weight,
-                             params.max_accum_frames)
+    """Specular temporal filter (renderer/pathtracer.py:1242-1303).
+    Returns (color_with_specular, new_history_spec, new_history_spec_depth)."""
+    texcoord, center_x1, skip = _center(cfg, params, gbuffer, render_scale)
     center_refl_depth = gbuffer["depth_reflection"]
-    depth_out = mix(history_spec_depth, center_refl_depth,
-                    sample_weight / new_w)
+    if moving:
+        center_n = packing.decode_unit_vector_3x16(gbuffer["normals"])
+        refl_nonlin = delinearize_depth(center_refl_depth, params.proj)
+        refl_pos = view_to_world(
+            screen_to_view(texcoord, refl_nonlin, params.proj_inv),
+            params.view_inv)
+        rp_src = torch.where((center_refl_depth != 0.0)[..., None], refl_pos,
+                             center_x1)
+        rp = reproject(rp_src, params.prev_view, params.prev_proj)
+        current, w_sum, hist, hist_depth = _moving_taps(
+            cfg, params, color_spec, history_spec, gbuffer, texcoord, rp,
+            linearize_depth(rp[..., 2], params.proj_inv), center_n,
+            render_scale, gate_depth=False, extra=history_spec_depth)
+    else:
+        current, w_sum, hist = color_spec, None, history_spec
+        hist_depth = history_spec_depth
+
+    hist_out, has_hist, new_w = _blend(hist, current, w_sum, sample_weight,
+                                       params.max_accum_frames)
+    depth_out = mix(hist_depth, center_refl_depth, sample_weight / new_w)
+    if has_hist is not None:
+        depth_out = torch.where(has_hist, depth_out, center_refl_depth)
+
     new_history = torch.where(skip[..., None], history_spec, hist_out)
     new_depth = torch.where(skip, history_spec_depth, depth_out)
     new_color = torch.where(skip[..., None], color, color + hist_out[..., 0:3])

@@ -6,8 +6,9 @@ Reproduces the reference's 8-method Scene surface (scene.py:112-297):
 ``finish()`` — with TPU-native semantics: scene construction runs as
 vectorized host numpy (the reference runs it inside user ``@ti.kernel``s;
 our examples pass index *arrays* for the same effect), and ``finish()``
-renders headlessly to PNG instead of opening a GGUI window. An interactive
-loop equivalent (``run_frames``) is port slice 2.
+renders headlessly to PNG instead of opening a GGUI window. ``run_frames``
+is the interactive loop's equivalent with a scripted camera path; the
+browser viewer (app/viewer.py) drives it from keyboard and mouse input.
 
 ``Scene(..., device=None)`` renders on the CUDA card and raises when there is
 none; ``device="cpu"`` runs the plain PyTorch path explicitly.
@@ -183,3 +184,22 @@ class Scene:
             if not self.quiet:
                 print(f"Image written to {out_path}")
         return img
+
+    def run_frames(self, frames, spp_per_frame=1, on_frame=None, stats=None,
+                   fetch_final=True, sync_lag=0):
+        """Interactive-equivalent loop with a scripted camera path
+        (replaces the GGUI while-loop, scene.py:206-297).
+
+        ``frames`` is an iterable of dicts; each may contain ``move_keys``
+        (WASDQE characters), ``orbit`` (dx, dy), ``dt``. Motion triggers the
+        reference's degradation policy: render_scale 0.5 + 50-frame history
+        cap while moving, framebuffer reset on transitions
+        (scene.py:209-228). Returns the last LDR image (None when
+        ``fetch_final=False`` — throughput loops sync elsewhere).
+        ``sync_lag=N`` double-buffers the per-frame sync (display N frames
+        behind; see HeadlessRenderer.run_frames)."""
+        r = self.renderer
+        r.prepare_data()
+        return r.run_frames(frames, spp_per_frame=spp_per_frame,
+                            on_frame=on_frame, stats=stats,
+                            fetch_final=fetch_final, sync_lag=sync_lag)

@@ -87,7 +87,7 @@ def load_sky(cfg, sun_dir, sun_col, cos_max, device, cache_dir=".skycache",
                                 device)
     raise NotImplementedError(
         f"no cached sky {name} for this config and light: the sky "
-        "precompute is not ported yet (port slice 2); render the scene once "
+        "precompute is not ported yet; render the scene once "
         "with the JAX package to write the cache, or hand the sky over with "
         "voxelrt_torch.interop.from_jax_arrays")
 
