@@ -1,33 +1,47 @@
 """Smoke run of the PyTorch port on one CUDA card: build the kernels, hold
-each against its plain PyTorch twin at main-path shapes, and drive the
-example6 scene (terrain, trees, physical sky + clouds, sun) at 1280x720
+each against its plain PyTorch twin at main-path shapes, and drive the port's
+paths at 1280x720: example6 (terrain, trees, physical sky + clouds, sun)
 through ``Scene.finish`` (still frames), ``Scene.run_frames`` (a moving
-camera path) and the browser viewer.
+camera path) and the browser viewer; a full-size sky precompute; every
+example scene; the explicit shadow dispatch with the bilinear sky fetch; and
+the loop-construct probe.
 
     python3 chip_smoke.py
 
 Phases, each printing its own line: 1 device, 2 build, 3 scene set-up, 4 the
 still path (64 spp at 16 samples per launch, the launch counters set to 0
 just before it and read just after), 5 B1 against its twin on that path's
-own four dispatches, 6 the steady-state rate and a profiled launch, 7 B2 and
-B3 against their twins on main-path inputs, 8 a small-render check of the
-card path against the CPU path; 9 the moving path (24 moving frames at
-640x360 active, then 6 still frames, counters set to 0 just before and read
-just after), 10 B4 against its twin on the last moving frame's own two
-calls, with both tap filters, 11 a profiled moving frame, 12 the viewer
-driven over HTTP, 13 a small moving-path check of the card against the
-CPU; then the kernels JSON line, the card's name and power limit, and the
-result line ``{"ok": true, "device": {...}}`` last. Details go to
-``chiprun_out/chip_smoke.json``. Any failure exits non-zero before the
-result line. Without a CUDA card it exits 1 at once.
+own four dispatches (the twin on 4 of a dispatch's 16 samples), 6 the
+steady-state rate and a profiled launch, 7 B2 and B3 against their twins on
+main-path inputs, 8 a small-render check of the card path against the CPU
+path; 9 the moving path (24 moving frames at 640x360 active, then 6 still
+frames, counters set to 0 just before and read just after), 10 B4 against
+its twin on the last moving frame's own two calls, with both tap filters, 11
+a profiled moving frame, 12 the viewer driven over HTTP, 13 a small
+moving-path check of the card against the CPU; 14 example7's sky computed on
+the card at the default knobs into an empty temporary cache, then found
+there, and the same sky at test knobs on the card against the CPU; 15 every
+example through ``tools/run_example_torch.py``'s function at 16 spp; 16
+example6 with ``nee_in_kernel=False``, ``sky_fetch='bilinear'`` and
+``nee_transmittance='per_ray'``: B1's shadow dispatch and B3 at the full
+wavefront against their twins on that path's own inputs, its rate beside the
+main path's, and small renders against the main path and the CPU; 17 P
+against its plain version for every variant, then ``tools/cuda_probe.py``'s
+table; then the kernels JSON line, the card's name and power limit, and the
+result line ``{"ok": true, "device": {...}}`` last. Every path is driven
+with the launch counters set to 0 just before it and read just after.
+Details go to ``chiprun_out/chip_smoke.json``. Any failure exits non-zero
+before the result line. Without a CUDA card it exits 1 at once.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.error
@@ -44,6 +58,19 @@ MAIN_SPL = 16
 MOVE = {"orbit": (0.01, 0.002), "move_keys": ["w"], "dt": 0.02}
 HOLD = {"dt": 0.02}
 N_MOVING, N_STILL = 24, 6
+B1_TWIN_SAMPLES = 4  # of a dispatch's 16 samples go through B1's slow twin
+EXAMPLE_SPP = 16
+EXAMPLE10_SKY_RES = 256  # its sky is computed at this size here, not 1024
+TINY_SKY = dict(skybox_res=128, sky_steps=8, sky_sun_samples=2,
+                sky_ms_samples=2, sky_ms_steps=2, cloud_steps=8,
+                cloud_sun_samples=2, cloud_shadow_steps=2,
+                cloud_accum_passes=2)  # tests/test_examples_golden.py
+SHADOW_PATH = dict(nee_in_kernel=False, sky_fetch="bilinear",
+                   nee_transmittance="per_ray")
+# float32 and integer operations per lane and loop iteration of P's variants
+# (csrc/probe.cu: 8 carry adds, the loop counter, and the construct)
+PROBE_OPS = dict(base=9, orred=16, ctz=30, reduce=14, reduce2=19, rolls=24,
+                 gather=17, fetch=24, cond=11, alu20=29)
 
 
 def fail(msg):
@@ -86,25 +113,321 @@ class Recorder:
         setattr(self.module, self.name, self.orig)
 
 
-def build_example6(device, image_res=None, quiet=True):
-    """example6's Scene on the port, built without editing examples/: the
-    shared ``_common.make_scene`` is replaced before the module is imported."""
-    sys.path.insert(0, os.path.join(HERE, "examples"))
-    import _common
+def build_example(*args, **kwargs):
+    """voxelrt_torch.app.examples.build_example (examples/*.py unedited)."""
+    sys.path.insert(0, HERE)
+    from voxelrt_torch.app.examples import build_example as build
 
-    from voxelrt_torch.scene import Scene
+    return build(*args, **kwargs)
 
-    def make_scene(argv=None, **kw):
-        if image_res is not None:
-            kw["image_res"] = image_res
-        return Scene(quiet=quiet, device=device, **kw)
 
-    _common.make_scene = make_scene
-    sys.modules.pop("example6", None)
-    import example6
+class OpCounter:
+    """Counts the PyTorch operators dispatched inside a ``with`` block, views
+    and other operators that launch nothing left out: on the card, the eager
+    kernels launched."""
 
-    example6.initialize_voxels()
-    return example6.scene
+    NO_KERNEL = ("view", "reshape", "expand", "unsqueeze", "squeeze", "select",
+                 "slice", "alias", "permute", "transpose", "as_strided",
+                 "detach", "t.", "unbind", "split", "_unsafe_view",
+                 "_reshape_alias", "lift_fresh", "empty", "sym_", "numel",
+                 "is_", "_local_scalar_dense")
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        counter = self
+        self.count = 0
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                name = func.__name__
+                if not name.startswith(counter.NO_KERNEL):
+                    counter.count += 1
+                return func(*args, **(kwargs or {}))
+
+        self._mode = Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._mode.__exit__(*exc)
+
+
+def sky_args(scene):
+    """The arguments HeadlessRenderer.prepare_data gives prepare_sky."""
+    r = scene.renderer
+    return (np.asarray(scene._light_direction, np.float32),
+            np.asarray(scene._light_color, np.float32) * r.cfg.light_weight,
+            float(scene._light_cone_cos_theta_max))
+
+
+def phase_sky(cache_dir):
+    """Phase 14: example7's sky at the default knobs, on the card, into the
+    empty ``cache_dir``; the second call must find it there. Then the same
+    sky at TINY_SKY knobs on the card and on the CPU."""
+    import torch
+
+    from voxelrt_torch.sky import atmos
+
+    scene = build_example("example7", None)
+    cfg = scene.renderer.cfg
+    args = sky_args(scene)
+    if os.listdir(cache_dir) or atmos.load_sky(
+            cfg, *args, "cpu", cache_dir) is not None:
+        fail("phase 14 needs a sky that no cache holds")
+    stats = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with OpCounter() as ops:
+        # no device named: the entry point's default is the card
+        sky = atmos.prepare_sky(cfg, *args, quiet=True, cache_dir=cache_dir,
+                                stats=stats)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    res = cfg.skybox_res
+    for name, m in (("scattering", sky.skybox_scattering),
+                    ("transmittance", sky.skybox_transmittance)):
+        if m.shape != (res, res, 3) or not np.isfinite(m).all():
+            fail(f"sky {name} map is not finite or has the wrong shape")
+        if float(m.std()) <= 1e-6:
+            fail(f"sky {name} map is constant")
+    hit = {}
+    t0 = time.perf_counter()
+    again = atmos.prepare_sky(cfg, *args, quiet=True, cache_dir=cache_dir,
+                              stats=hit)
+    hit_s = time.perf_counter() - t0
+    if not hit.get("cache_hit") or not np.array_equal(
+            again.skybox_scattering, sky.skybox_scattering):
+        fail("the second prepare_sky did not load the cached sky")
+    del sky, again
+    torch.cuda.empty_cache()
+    tiny = dataclasses.replace(cfg, **TINY_SKY)
+    maps = {}
+    tiny_s = {}
+    for d in ("cuda", "cpu"):
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            maps[d] = atmos.prepare_sky(tiny, *args, quiet=True,
+                                        cache_dir=tmp, device=d)
+            tiny_s[d] = time.perf_counter() - t0
+    ok = np.ones((TINY_SKY["skybox_res"],) * 2, bool)
+    for f in ("skybox_scattering", "skybox_transmittance"):
+        ok &= np.isclose(getattr(maps["cuda"], f), getattr(maps["cpu"], f),
+                         rtol=2e-4, atol=1e-7).all(-1)
+    out = dict(skybox_res=res, total_s=total_s, lut_s=stats["lut_s"],
+               cloud_s=stats["cloud_s"], sky_s=stats["sky_s"],
+               chunks_per_batch=stats["chunks_per_batch"], peak_gb=peak_gb,
+               eager_kernels=ops.count, cache_hit_s=hit_s,
+               tiny_card_s=tiny_s["cuda"], tiny_cpu_s=tiny_s["cpu"],
+               tiny_share_outside=float(1.0 - ok.mean()))
+    # Texels of the cloud layer flip on a last-bit difference (a density
+    # lookup lands in the neighbouring texture cell): 3.2% of them between
+    # an H100 and the CPU path. The bar lies just above that, so that a fault
+    # in the cloud march that moves a few percent of the texels fails.
+    if out["tiny_share_outside"] > 0.05:
+        fail("the card's sky disagrees with the CPU's")
+    return out
+
+
+def phase_examples(sky_cache):
+    """Phase 15: every example at 1280x720, EXAMPLE_SPP spp, on the card,
+    through tools/run_example_torch.py's function. Sky scenes look in
+    ``sky_cache`` (example7's is there from phase 14) and in the repo's
+    shipped cache (example6's); example10's is computed here, at
+    EXAMPLE10_SKY_RES."""
+    import torch
+
+    sys.path.insert(0, os.path.join(HERE, "tools"))
+    from run_example_torch import run_example
+
+    from voxelrt_torch.app.examples import NAMES
+
+    rows = []
+    for name in NAMES:
+        over = dict(samples_per_launch=EXAMPLE_SPP)
+        if name == "example10":
+            over["skybox_res"] = EXAMPLE10_SKY_RES
+        img, fig = run_example(name, None, (1280, 720), EXAMPLE_SPP,
+                               save=False, sky_cache_dir=sky_cache, **over)
+        fig.update(mean=float(img.mean()), std=float(img.std()),
+                   skybox_res=over.get("skybox_res"))
+        del fig["out"]
+        print(f"example {name}: {json.dumps(fig)}", flush=True)
+        if img.shape != (1280, 720, 3) or not np.isfinite(img).all():
+            fail(f"{name}: image is not finite or has the wrong shape")
+        if fig["std"] <= 1e-4:
+            fail(f"{name}: image is constant")
+        if fig["launches"]["traverse"] <= 0:
+            fail(f"{name}: B1 was not launched")
+        sky = name in ("example6", "example7", "example10")
+        for k in ("point_fetch", "bilinear_fetch"):
+            if (fig["launches"][k] > 0) != sky:
+                fail(f"{name}: {k} launches {fig['launches'][k]}, sky={sky}")
+        rows.append(fig)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def b3_check(tab, fx, fy, res):
+    """B3 kernel vs twin on one set of arguments, with times and bound."""
+    import torch
+
+    from voxelrt_torch.ops import texfetch as tf
+
+    ka = tf.bilinear_fetch_packed(tab, fx, fy, res)
+    pa = tf.bilinear_fetch_packed_plain(tab, fx, fy, res)
+    n = fx.shape[0]
+    texels = min(4 * n, res * res)
+    return dict(
+        n=n, max_abs_err=(ka - pa).abs().max().item(),
+        max_rel_err=((ka - pa).abs() / pa.abs().clamp(min=1e-30)).max().item(),
+        ms=cuda_ms(lambda: tf.bilinear_fetch_packed(tab, fx, fy, res), 10),
+        plain_ms=cuda_ms(
+            lambda: tf.bilinear_fetch_packed_plain(tab, fx, fy, res), 10),
+        bound_ms=(n * (8 + 12) + texels * 8) / HBM_BYTES_PER_S * 1e3)
+
+
+def phase_shadow_path(main_steady_ms):
+    """Phase 16: example6 at 1280x720, 16 samples per launch, with the
+    explicit sun-shadow dispatch, the bilinear sky fetch and the per-ray NEE
+    transmittance (SHADOW_PATH)."""
+    import torch
+
+    from voxelrt_torch.ops import _cuda
+    from voxelrt_torch.render import pathtracer as pt
+    from voxelrt_torch.sky import atmos
+
+    scene = build_example("example6", None, samples_per_launch=MAIN_SPL,
+                          **SHADOW_PATH)
+    r = scene.renderer
+    r.prepare_data()
+    rec_b1 = Recorder(pt, "raytrace", keep=8)
+    rec_bl = Recorder(atmos, "bilinear_fetch_packed", keep=1)
+    _cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    img = r.render(spp=MAIN_SPL)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r.render(spp=2 * MAIN_SPL)
+    torch.cuda.synchronize()
+    steady_ms = (time.perf_counter() - t0) / (2 * MAIN_SPL) * 1e3
+    launches = dict(_cuda.LAUNCHES)
+    rec_b1.restore()
+    rec_bl.restore()
+    w, h = r.cfg.image_res
+    if img.shape != (w, h, 3) or not np.isfinite(img).all() or \
+            float(img.std()) <= 1e-4:
+        fail("shadow path: image is not finite, constant or misshaped")
+    n_launch = 3
+    depth = r.cfg.max_ray_depth
+    want = dict(traverse=2 * depth * n_launch, traverse_shadow=depth * n_launch,
+                bilinear_fetch=(depth + 2) * n_launch, point_fetch=0)
+    for k, v in want.items():
+        if launches[k] != v:
+            fail(f"shadow path: {launches[k]} {k} launches, expected {v}")
+    print(f"shadow path: example6 {w}x{h}, {json.dumps(SHADOW_PATH)}, "
+          f"samples_per_launch={MAIN_SPL}, steady per_spp_ms {steady_ms:.3f} "
+          f"(main path in this run: {main_steady_ms:.3f}), launches "
+          f"{launches}", flush=True)
+    shadow = [c for c in rec_b1.calls if c[1].get("any_hit")]
+    if len(shadow) != depth:
+        fail("shadow path: the shadow dispatches were not recorded")
+    b1s = []
+    for d, call in enumerate(shadow):
+        c = b1_shadow_check(call, chunk=w * h, max_chunks=B1_TWIN_SAMPLES)
+        b1s.append(c)
+        print(f"B1 shadow depth {d}: {json.dumps(c)}", flush=True)
+        if not c["ok"]:
+            fail(f"B1's shadow dispatch at depth {d} disagrees with its twin")
+    del rec_b1, shadow
+    (tab, fx, fy, res), _ = rec_bl.calls[-1]
+    b3 = b3_check(tab, fx, fy, res)
+    print(f"B3 at the shadow path's wavefront: {json.dumps(b3)}", flush=True)
+    if b3["n"] != MAIN_SPL * w * h or b3["max_rel_err"] > 1e-6:
+        fail("B3 at the full wavefront disagrees with its twin")
+    del rec_bl, r, scene
+    torch.cuda.empty_cache()
+    # small renders from one seed: the explicit dispatch against in-kernel
+    # NEE (same estimator, stochastic sky), and the whole path on the card
+    # against the CPU
+    def small(device, **over):
+        s = build_example("example6", device, (128, 72), samples_per_launch=2,
+                          **over)
+        return s.finish(spp=4, save=False)
+
+    def rmse(a, b):
+        return float(np.sqrt(np.mean((a - b) ** 2)))
+
+    explicit = rmse(small("cuda", nee_in_kernel=False), small("cuda"))
+    card_cpu = rmse(small("cuda", **SHADOW_PATH), small("cpu", **SHADOW_PATH))
+    print(f"small renders (example6 128x72, 4 spp): explicit shadow dispatch "
+          f"vs in-kernel NEE RMSE {explicit:.3e}; shadow path card vs CPU "
+          f"RMSE {card_cpu:.3e}", flush=True)
+    if not explicit < 1e-4 or not card_cpu < 1e-4:
+        fail("the shadow path's small renders disagree")
+    return dict(steady_per_spp_ms=steady_ms, launches=launches, b1_shadow=b1s,
+                b3=b3, explicit_vs_in_kernel_rmse=explicit,
+                card_vs_cpu_rmse=card_cpu)
+
+
+def phase_probe():
+    """Phase 17: P against its plain version for every variant at two
+    iteration counts, then tools/cuda_probe.py's measurement."""
+    import torch
+
+    sys.path.insert(0, os.path.join(HERE, "tools"))
+    import cuda_probe
+
+    from voxelrt_torch.ops import _cuda
+    from voxelrt_torch.ops import probe as pr
+
+    dev = torch.device("cuda")
+    n_blocks, check_iters = 512, (16, 64)
+    x, tab = cuda_probe.probe_inputs(n_blocks, 0, dev, x_scale=2048.0)
+    checks = {}
+    for v in pr.VARIANTS:
+        worst = worst_abs = 0.0
+        for it in check_iters:
+            ko, ka = pr.probe(x, tab, v, it)
+            po, pa = pr.probe_plain(x, tab, v, it)
+            for a, b in ((ko, po), (ka, pa)):
+                rel = ((a - b).abs() / b.abs().clamp(min=1e-30)).max().item()
+                worst = max(worst, rel)
+                worst_abs = max(worst_abs, (a - b).abs().max().item())
+                exact = v != "alu20"
+                if (exact and not torch.equal(a, b)) or rel > 1e-6:
+                    fail(f"P[{v}] at {it} iterations disagrees with its "
+                         f"plain version (max relative error {rel:.3e})")
+        it = check_iters[1]
+        ops = n_blocks * 1024 * it * PROBE_OPS[v]
+        nbytes = n_blocks * 1024 * 4 * 3 + tab.numel() * 4
+        t_ops = ops / FP32_OPS_PER_S * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        checks[v] = dict(
+            iters=it, max_rel_err=worst, max_abs_err=worst_abs,
+            ms=cuda_ms(lambda: pr.probe(x, tab, v, it), 10),
+            plain_ms=cuda_ms(lambda: pr.probe_plain(x, tab, v, it), 1),
+            bound_ms=max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes")
+    _cuda.reset_launch_counts()
+    table = cuda_probe.run_probe(pr.VARIANTS, n_blocks=n_blocks, trials=3)
+    launches = _cuda.LAUNCHES["probe"]
+    if launches <= 0:
+        fail("the probe's entry point launched no kernel")
+    for v, f in table.items():
+        if not (f["ms_hi"] > f["ms_lo"] > 0.0):
+            fail(f"P[{v}]: times do not grow with the iteration count")
+        print(f"P {v:8s} equal to plain (max rel err "
+              f"{checks[v]['max_rel_err']:.1e}); {checks[v]['ms']:.4f} ms at "
+              f"{checks[v]['iters']} iterations (plain "
+              f"{checks[v]['plain_ms']:.1f} ms); "
+              f"{f['ns_per_iter_per_block']:.3f} ns/iter/block over "
+              f"{f['blocks']} blocks, loop {f['loop_ns_per_iter']:.1f} "
+              f"ns/iter at one block per multiprocessor", flush=True)
+    return dict(checks=checks, table=table, launches=launches,
+                n_blocks=n_blocks)
 
 
 def _ray_slice(x, n, lo, hi):
@@ -123,11 +446,13 @@ def _ray_slice(x, n, lo, hi):
     return x
 
 
-def b1_check(rec_args, chunk, reps=3):
+def b1_check(rec_args, chunk, reps=3, max_chunks=None):
     """B1 kernel vs twin on one recorded main-path dispatch, with the
     test_dda_pallas bar. The kernel runs on the whole dispatch; the twin in
     runs of ``chunk`` rays (one sample's wavefront each), which bounds its
-    temporaries. Returns a dict of figures."""
+    temporaries, over the first ``max_chunks`` of them (None: all). Shares
+    are of the rays compared; ``plain_ms`` is the twin's time scaled to the
+    whole dispatch. Returns a dict of figures."""
     import torch
 
     from voxelrt_torch.ops import dda_kernel as dk
@@ -140,8 +465,9 @@ def b1_check(rec_args, chunk, reps=3):
     tot = dict(mism=0, col_bad=0, vis_agree=0, exact=0, hits=0)
     max_err = 0.0
     plain_ms = 0.0
-    for lo in range(0, n, chunk):
-        hi = min(n, lo + chunk)
+    n_cmp = n if max_chunks is None else min(n, chunk * max_chunks)
+    for lo in range(0, n_cmp, chunk):
+        hi = min(n_cmp, lo + chunk)
         sa = [_ray_slice(a, n, lo, hi) for a in rest]
         skw = {name: _ray_slice(v, n, lo, hi) for name, v in kw.items()}
         start = torch.cuda.Event(enable_timing=True)
@@ -171,18 +497,72 @@ def b1_check(rec_args, chunk, reps=3):
         tot["hits"] += int(hk.sum().item())
         max_err = max(max_err, dd.max().item())
         del p
-    vis_agree = tot["vis_agree"] / n if k.nee_visible is not None else 1.0
-    out = dict(n=n, alive=int((kw["alive"] != 0).sum().item()),
-               mismatch_frac=tot["mism"] / n, color_mismatch=tot["col_bad"],
-               nee_visible_agree=vis_agree, exact_frac=tot["exact"] / n,
+    vis_agree = (tot["vis_agree"] / n_cmp if k.nee_visible is not None
+                 else 1.0)
+    out = dict(n=n, compared=n_cmp, alive=int((kw["alive"] != 0).sum().item()),
+               mismatch_frac=tot["mism"] / n_cmp,
+               color_mismatch=tot["col_bad"],
+               nee_visible_agree=vis_agree, exact_frac=tot["exact"] / n_cmp,
                max_abs_err=max_err, hits=tot["hits"],
                sum_iters=int(k.iters.to(torch.int64).sum().item()))
     out["ok"] = (out["mismatch_frac"] <= 0.01 and tot["col_bad"] == 0
                  and vis_agree >= 0.99)
     out["ms"] = cuda_ms(lambda: dk.raytrace(*args, **kw), reps)
-    out["plain_ms"] = plain_ms
+    out["plain_ms"] = plain_ms * n / n_cmp
     out["bound_ms"], out["bound_by"] = b1_bound_ms(args, kw, out["alive"],
                                                    out["sum_iters"])
+    return out
+
+
+def b1_shadow_check(rec_args, chunk, reps=3, max_chunks=None):
+    """B1's shadow mode vs its twin on one recorded shadow dispatch: the
+    distances (and so the verdicts) must be bit-equal on the rays compared.
+    The operation count of the bound takes the advances of the closest-hit
+    kernel on the same rays, which runs the same march."""
+    import torch
+
+    from voxelrt_torch.ops import dda_kernel as dk
+
+    args, kw = rec_args
+    tables, rest = args[0], args[1:]
+    n = rest[0].x.shape[0]
+    k = dk.raytrace(*args, **kw)
+    torch.cuda.synchronize()
+    n_cmp = n if max_chunks is None else min(n, chunk * max_chunks)
+    bad = 0
+    max_err = 0.0
+    plain_ms = 0.0
+    for lo in range(0, n_cmp, chunk):
+        hi = min(n_cmp, lo + chunk)
+        sa = [_ray_slice(a, n, lo, hi) for a in rest]
+        skw = {name: _ray_slice(v, n, lo, hi) for name, v in kw.items()}
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        p = dk.raytrace_plain(tables, *sa, **skw)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms += start.elapsed_time(end)
+        kd = k.distance[lo:hi]
+        differ = kd != p.distance
+        bad += int(differ.sum().item())
+        # inf where one side blocks and the other does not
+        max_err = max(max_err, torch.where(
+            differ, (kd - p.distance).abs(),
+            torch.zeros_like(kd)).max().item())
+    closest_kw = dict(kw, any_hit=False, fetch_colors=True)
+    sum_iters = int(dk.raytrace(*args, **closest_kw).iters.to(
+        torch.int64).sum().item())
+    alive = int((kw["alive"] != 0).sum().item())
+    out = dict(n=n, compared=n_cmp, alive=alive,
+               blocked=int(torch.isfinite(k.distance).sum().item()),
+               mismatched=bad, max_abs_err=max_err,
+               sum_iters=sum_iters, ok=bad == 0)
+    out["ms"] = cuda_ms(lambda: dk.raytrace(*args, **kw), reps)
+    out["closest_hit_ms"] = cuda_ms(lambda: dk.raytrace(*args, **closest_kw),
+                                    reps)
+    out["plain_ms"] = plain_ms * n / n_cmp
+    out["bound_ms"], out["bound_by"] = b1_bound_ms(args, kw, alive, sum_iters)
     return out
 
 
@@ -193,7 +573,8 @@ def b1_bound_ms(args, kw, n_alive, sum_iters):
     and the NEE inputs (u0, u1, alt_t) only for the alive rays, since a dead
     ray reads nothing more; tmin and the NEE scalars once; the tables once;
     every output (distance, ipos, normal, iters, colour, active, and
-    nee_visible with NEE) once for every ray. Operations: ~60 float32
+    nee_visible with NEE; in shadow mode the distance alone) once for every
+    ray. Operations: ~60 float32
     operations per traversal advance (csrc/dda.cu march step), times the
     advances that this dispatch's primaries took."""
     from voxelrt_torch.ops.dda_kernel import DeviceTables
@@ -207,7 +588,7 @@ def b1_bound_ms(args, kw, n_alive, sum_iters):
         per_alive += 4 * 3
     nbytes = (n * (alive.element_size() if alive is not None else 0)
               + n_alive * per_alive
-              + n * 4 * (10 + (nee is not None))
+              + n * 4 * (1 if kw.get("any_hit") else 10 + (nee is not None))
               + 4 + (48 if nee is not None else 0)
               + sum(getattr(tables, f).numel() * 4
                     for f in DeviceTables._fields[:-1]))
@@ -450,11 +831,7 @@ def main():
 
     # -- 3. scene set-up (the main path's own entry points) -----------------
     t0 = time.perf_counter()
-    scene = build_example6(None)
-    import dataclasses
-
-    scene.config = dataclasses.replace(scene.config,
-                                       samples_per_launch=MAIN_SPL)
+    scene = build_example("example6", None, samples_per_launch=MAIN_SPL)
     r = scene.renderer
     r.prepare_data()
     torch.cuda.synchronize()
@@ -509,10 +886,11 @@ def main():
     # -- 5. B1 kernel vs twin on the main path's own dispatches ---------------
     # The last launch's four depths, 14.7M rays each (16 samples of
     # 921,600): depth 0 is the primary wavefront with in-kernel NEE, depths
-    # 1-3 the bounce wavefronts; the twin runs one sample at a time.
+    # 1-3 the bounce wavefronts; the twin runs one sample at a time, on
+    # B1_TWIN_SAMPLES of the 16.
     b1 = []
     for depth, call in enumerate(rec_b1.calls):
-        c = b1_check(call, chunk=w * h)
+        c = b1_check(call, chunk=w * h, max_chunks=B1_TWIN_SAMPLES)
         b1.append(c)
         print(f"B1 depth {depth}: {json.dumps(c)}", flush=True)
         if not c["ok"]:
@@ -522,11 +900,11 @@ def main():
     # -- 6. steady state and where the device time goes -------------------------
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    r.render(spp=2 * MAIN_SPP)
+    r.render(spp=MAIN_SPP)
     torch.cuda.synchronize()
-    steady_ms = (time.perf_counter() - t0) / (2 * MAIN_SPP) * 1e3
+    steady_ms = (time.perf_counter() - t0) / MAIN_SPP * 1e3
     prof = profile_launch(r, steady_ms * r.cfg.samples_per_launch)
-    print(f"steady state: per_spp_ms {steady_ms:.3f} over {2 * MAIN_SPP} "
+    print(f"steady state: per_spp_ms {steady_ms:.3f} over {MAIN_SPP} "
           f"more spp; one launch profiled (idle share against the "
           f"unprofiled launch): {json.dumps(prof)}", flush=True)
 
@@ -553,28 +931,16 @@ def main():
     fym = (torch.rand(1 << 20, generator=g) * (res3 + 4) - 2).to(dev)
     b3 = {}
     for tag, fx, fy in (("n1", fx1, fy1), ("n1M", fxm, fym)):
-        ka = tf.bilinear_fetch_packed(tab3, fx, fy, res3)
-        pa = tf.bilinear_fetch_packed_plain(tab3, fx, fy, res3)
-        err = (ka - pa).abs().max().item()
-        rel = ((ka - pa).abs() / pa.abs().clamp(min=1e-30)).max().item()
-        n3 = fx.shape[0]
-        texels = min(4 * n3, res3 * res3)
-        b3[tag] = dict(
-            n=n3, max_abs_err=err, max_rel_err=rel,
-            ms=cuda_ms(lambda: tf.bilinear_fetch_packed(tab3, fx, fy, res3),
-                       10),
-            plain_ms=cuda_ms(
-                lambda: tf.bilinear_fetch_packed_plain(tab3, fx, fy, res3), 10),
-            bound_ms=(n3 * (8 + 12) + texels * 8) / HBM_BYTES_PER_S * 1e3)
+        b3[tag] = b3_check(tab3, fx, fy, res3)
         print(f"B3 {tag}: {json.dumps(b3[tag])}", flush=True)
-        if rel > 1e-6:
+        if b3[tag]["max_rel_err"] > 1e-6:
             fail(f"B3 ({tag}) disagrees with its twin")
 
     # -- 8. small render: card path vs the plain CPU path ----------------------
     small = {}
     for d in ("cuda", "cpu"):
-        s = build_example6(d, image_res=(128, 72))
-        s.config = dataclasses.replace(s.config, samples_per_launch=2)
+        s = build_example("example6", d, image_res=(128, 72),
+                          samples_per_launch=2)
         small[d] = s.finish(spp=4, save=False)
     rmse = float(np.sqrt(np.mean((small["cuda"] - small["cpu"]) ** 2)))
     print(f"small render (example6 128x72, 4 spp): card vs CPU path RMSE "
@@ -593,7 +959,7 @@ def main():
     from voxelrt_torch.render import temporal
     from voxelrt_torch.utils.profiling import FrameStats
 
-    mscene = build_example6(None)
+    mscene = build_example("example6", None)
     mr = mscene.renderer
     rec_b4 = Recorder(temporal, "temporal_taps", keep=2)
     with open(os.devnull, "w") as null:
@@ -679,7 +1045,7 @@ def main():
     # -- 13. small moving path: card vs the plain CPU path -----------------------
     spath = {}
     for d in ("cuda", "cpu"):
-        spath[d], _ = run_path(build_example6(d, image_res=(128, 72)),
+        spath[d], _ = run_path(build_example("example6", d, image_res=(128, 72)),
                                [MOVE] * 3 + [HOLD] * 2)
     far = [float((np.abs(a - b) > 2e-3).any(-1).mean())
            for a, b in zip(spath["cuda"][:3], spath["cpu"][:3])]
@@ -692,6 +1058,28 @@ def main():
     # (tests/test_torch_frames.py).
     if max(far) > 0.01 or not max(srmse) < 1e-4:
         fail("card moving path disagrees with the CPU path")
+
+    del r, scene
+    torch.cuda.empty_cache()
+
+    # -- 14. a full-size sky on the card; 15. every example ---------------------
+    with tempfile.TemporaryDirectory() as sky_cache:
+        sky = phase_sky(sky_cache)
+        print(f"sky precompute: example7's sky at the default knobs "
+              f"({sky['skybox_res']}^2 texels) on the card: "
+              f"{json.dumps(sky)}", flush=True)
+        _cuda.reset_launch_counts()
+        examples = phase_examples(sky_cache)
+        ex_launches = dict(_cuda.LAUNCHES)
+    print(f"examples: {len(examples)} scenes at 1280x720, {EXAMPLE_SPP} spp, "
+          f"{sum(e['setup_s'] + e['render_s'] for e in examples):.1f} s, "
+          f"launches {ex_launches}", flush=True)
+
+    # -- 16. the explicit shadow dispatch, bilinear sky, per-ray NEE ------------
+    shadow = phase_shadow_path(steady_ms)
+
+    # -- 17. the probe -----------------------------------------------------------
+    probe = phase_probe()
 
     if "jax" in sys.modules or "voxelrt" in sys.modules:
         fail("the port imported jax or the voxelrt package")
@@ -708,7 +1096,18 @@ def main():
              shape=f"{b1[0]['n']} rays + NEE (depth 0 of a launch)",
              depth_ms=[c["ms"] for c in b1],
              depth_plain_ms=[c["plain_ms"] for c in b1],
-             depth_bound_ms=[c["bound_ms"] for c in b1]),
+             depth_bound_ms=[c["bound_ms"] for c in b1],
+             shadow_launches=shadow["launches"]["traverse_shadow"],
+             shadow_mismatched=sum(c["mismatched"]
+                                   for c in shadow["b1_shadow"]),
+             shadow_max_abs_err=max(c["max_abs_err"]
+                                    for c in shadow["b1_shadow"]),
+             shadow_ms=[c["ms"] for c in shadow["b1_shadow"]],
+             shadow_closest_hit_ms=[c["closest_hit_ms"]
+                                    for c in shadow["b1_shadow"]],
+             shadow_plain_ms=[c["plain_ms"] for c in shadow["b1_shadow"]],
+             shadow_bound_ms=[c["bound_ms"] for c in shadow["b1_shadow"]],
+             shadow_bound_by=[c["bound_by"] for c in shadow["b1_shadow"]]),
         dict(name="B2 point_fetch_words", route="cuda",
              source="voxelrt_torch/csrc/texfetch.cu",
              replaces="voxelrt/ops/texfetch.py:156",
@@ -720,12 +1119,18 @@ def main():
              replaces="voxelrt/ops/texfetch.py:59",
              launches=launches["bilinear_fetch"],
              max_abs_err=max(b3["n1"]["max_abs_err"],
-                             b3["n1M"]["max_abs_err"]),
+                             b3["n1M"]["max_abs_err"],
+                             shadow["b3"]["max_abs_err"]),
              ms=b3["n1"]["ms"], plain_ms=b3["n1"]["plain_ms"],
              bound_ms=b3["n1"]["bound_ms"], bound_by="bytes",
              library_ms=None, shape="1 lane (main path)",
              n1M_ms=b3["n1M"]["ms"], n1M_plain_ms=b3["n1M"]["plain_ms"],
-             n1M_bound_ms=b3["n1M"]["bound_ms"]),
+             n1M_bound_ms=b3["n1M"]["bound_ms"],
+             wavefront_lanes=shadow["b3"]["n"],
+             wavefront_launches=shadow["launches"]["bilinear_fetch"],
+             wavefront_ms=shadow["b3"]["ms"],
+             wavefront_plain_ms=shadow["b3"]["plain_ms"],
+             wavefront_bound_ms=shadow["b3"]["bound_ms"]),
         dict(name="B4 temporal_taps", route="cuda",
              source="voxelrt_torch/csrc/resample.cu",
              replaces="voxelrt/ops/resample.py:128",
@@ -743,18 +1148,47 @@ def main():
              variant_ms={k: c["ms"] for k, c in b4.items()},
              variant_plain_ms={k: c["plain_ms"] for k, c in b4.items()},
              variant_bound_ms={k: c["bound_ms"] for k, c in b4.items()}),
+        dict(name="P probe", route="cuda",
+             source="voxelrt_torch/csrc/probe.cu",
+             replaces="tools/pallas_probe.py:30",
+             launches=probe["launches"],
+             max_abs_err=max(c["max_abs_err"]
+                             for c in probe["checks"].values()),
+             max_rel_err=max(c["max_rel_err"]
+                             for c in probe["checks"].values()),
+             ms=probe["checks"]["fetch"]["ms"],
+             plain_ms=probe["checks"]["fetch"]["plain_ms"],
+             bound_ms=probe["checks"]["fetch"]["bound_ms"],
+             bound_by=probe["checks"]["fetch"]["bound_by"],
+             library_ms=None,
+             shape=f"{probe['n_blocks']} blocks of (8, 128) lanes, variant "
+                   f"fetch, {probe['checks']['fetch']['iters']} iterations "
+                   "(the errors are the largest of any variant)",
+             variant_ms={k: c["ms"] for k, c in probe["checks"].items()},
+             variant_plain_ms={k: c["plain_ms"]
+                               for k, c in probe["checks"].items()},
+             variant_bound_ms={k: c["bound_ms"]
+                               for k, c in probe["checks"].items()},
+             variant_ns_per_iter_per_block={
+                 k: f["ns_per_iter_per_block"]
+                 for k, f in probe["table"].items()},
+             variant_loop_ns_per_iter={
+                 k: f["loop_ns_per_iter"] for k, f in probe["table"].items()}),
     ]
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump(dict(kernels=kernels, setup_s=setup_s,
                        per_spp_ms=per_spp_ms, launches=launches,
-                       samples_per_launch=r.cfg.samples_per_launch,
+                       samples_per_launch=MAIN_SPL,
                        peak_gb=peak_gb, small_rmse=rmse, device=smi,
                        steady_per_spp_ms=steady_ms, profile=prof,
                        b1_depths=b1, b3=b3, moving_frame_ms=moving_frame_ms,
                        still_frame_ms=still_frame_ms, moving_wall_ms=walls,
                        moving_launches=mlaunches, moving_peak_gb=mpeak_gb,
                        b4=b4, moving_profile=mprof, viewer=view,
-                       small_path_far=far, small_path_rmse=srmse),
+                       small_path_far=far, small_path_rmse=srmse,
+                       sky=sky, examples=examples,
+                       example_launches=ex_launches, shadow_path=shadow,
+                       probe=probe),
                   fh, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)

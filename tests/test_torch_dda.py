@@ -25,6 +25,10 @@ from voxelrt_torch.ops import accel as taccel
 from voxelrt_torch.ops import dda_kernel as dk
 from voxelrt_torch.ops.v3 import V3
 
+# One thread per test process: the suite runs several processes side by
+# side, and the tensors here are small.
+torch.set_num_threads(1)
+
 RES = 32
 L = np.array([1.0, 1.0, -1.0]) / math.sqrt(3.0)
 CONE_COS = math.cos(0.025 * 0.5)

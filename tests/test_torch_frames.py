@@ -34,6 +34,12 @@ from voxelrt_torch.config import RenderConfig as TCfg
 from voxelrt_torch.scene import Scene as TScene
 from voxelrt_torch.utils.profiling import FrameStats
 
+import torch  # noqa: E402
+
+# One thread per test process: the suite runs several processes side by
+# side, and the tensors here are small.
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FRAMES = ([{"orbit": (0.01, 0.002), "move_keys": ["w"], "dt": 0.02}] * 3
           + [{"dt": 0.02}] * 2)

@@ -30,6 +30,10 @@ from voxelrt_torch.ops import accel as taccel
 from voxelrt_torch.render import pathtracer as tpt
 from voxelrt_torch.sky import atmos as tatmos
 
+# One thread per test process: the suite runs several processes side by
+# side, and the tensors here are small.
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -159,9 +163,10 @@ def test_sky_cache_key_matches_and_loads_shipped_example6():
     sky = tatmos.load_sky(cfg, light.astype(np.float32), col, cos, "cpu",
                           cache_dir=os.path.join(ROOT, "no-such-dir"))
     assert sky.packed_scatt.shape == (2 * 1024 * 1024,)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tatmos.load_sky(cfg, light.astype(np.float32), col * 2, cos, "cpu",
-                        cache_dir=os.path.join(ROOT, "no-such-dir"))
+    # a sky that no cache holds: the lookup half says so, and prepare_sky
+    # then computes it (tests/test_torch_sky.py)
+    assert tatmos.load_sky(cfg, light.astype(np.float32), col * 2, cos, "cpu",
+                           cache_dir=os.path.join(ROOT, "no-such-dir")) is None
 
 
 def test_interop_from_jax_arrays():
@@ -229,8 +234,12 @@ def test_unported_features_raise():
     from voxelrt_torch.render.pathtracer import check_supported
 
     for over in (dict(use_restir_pt=True), dict(sort_rays=True),
-                 dict(nee_in_kernel=False), dict(rng_draws="table"),
-                 dict(use_physical_sky=True, sky_fetch="bilinear")):
+                 dict(rng_draws="table")):
         with pytest.raises(NotImplementedError):
             check_supported(tcfg.RenderConfig(**over))
-    check_supported(tcfg.RenderConfig())
+    # ported since: the explicit shadow dispatch, the bilinear sky fetch and
+    # the per-ray NEE transmittance (tests/test_torch_modes.py)
+    for over in (dict(), dict(nee_in_kernel=False),
+                 dict(use_physical_sky=True, sky_fetch="bilinear"),
+                 dict(use_physical_sky=True, nee_transmittance="per_ray")):
+        check_supported(tcfg.RenderConfig(**over))

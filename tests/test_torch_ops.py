@@ -38,6 +38,10 @@ from voxelrt_torch.ops.v3 import V3 as TV3
 from voxelrt_torch.render import pathtracer as tpt
 from voxelrt_torch.sky import atmos as tatmos
 
+# One thread per test process: the suite runs several processes side by
+# side, and the tensors here are small.
+torch.set_num_threads(1)
+
 RTOL, ATOL = 1e-5, 1e-6
 
 
@@ -94,7 +98,7 @@ def test_prng_uniform_matches(n):
     for seed in range(6):
         k = jax.random.fold_in(jax.random.PRNGKey(seed), 417)
         want = np.asarray(jax.random.uniform(k, (n,)))
-        got = prng.uniform(tuple(int(x) for x in np.asarray(k)), n)
+        got = prng.uniform(tuple(int(x) for x in np.asarray(k)), n, "cpu")
         np.testing.assert_array_equal(got, want)
 
 

@@ -28,6 +28,10 @@ from voxelrt_torch.ops import prng
 from voxelrt_torch.render import pathtracer as tpt
 from voxelrt_torch.render import pipeline as tpl
 
+# One thread per test process: the suite runs several processes side by
+# side, and the tensors here are small.
+torch.set_num_threads(1)
+
 
 def _np(nt):
     return {k: (v if isinstance(v, int) else np.asarray(v))
@@ -70,7 +74,7 @@ def test_trace_sample_per_pixel(both):
     np.testing.assert_array_equal(tv.numpy(), np.asarray(v))
     skeys, jit = tpl.sample_keys_of(prng.key(3), 1)
     to = tpt.trace_sample(tcfg, tsd, tp, tu, tv, skeys[0],
-                          (torch.tensor(jit[0][0]), torch.tensor(jit[0][1])))
+                          (jit[0][0], jit[0][1]))
     n = tu.shape[0]
     for name in ("diffuse", "specular"):
         a, b = _pack(jo[name]), torch.stack(list(to[name]), -1).numpy()

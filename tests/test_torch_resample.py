@@ -31,6 +31,10 @@ from voxelrt_torch.ops import _cuda
 from voxelrt_torch.ops import resample as trs
 from voxelrt_torch.render import temporal as ttemporal
 
+# One thread per test process: the suite runs several processes side by
+# side, and the tensors here are small.
+torch.set_num_threads(1)
+
 VARIANTS = [(f, g, e) for f in ("bilinear", "catmullrom")
             for g, e in ((True, False), (False, True))]
 IDS = [f"{f}-{'diffuse' if g else 'specular'}" for f, g, e in VARIANTS]

@@ -2,13 +2,18 @@
 (device="cpu": the kernels' plain twins) against the JAX package's
 ``Scene.finish`` under the same production config (Pallas kernels in
 interpret mode), on a scene built through the 8-method API with no sky and
-on example6 with its physical sky + clouds. The JAX package's sky
-precompute writes the .skycache/ entry that the port's ``load_sky`` then
-reads: the sky is handed over, since its precompute is not ported yet.
+on example6 with its physical sky + clouds: once with the sky handed over
+(the JAX package's precompute writes the .skycache/ entry that the port's
+``prepare_sky`` then finds), once with no cache file anywhere, each package
+computing its own sky.
 
-Images are held to an RMSE of 1e-4 (the golden-image bar of
+With one sky, images are held to an RMSE of 1e-4 (the golden-image bar of
 tests/test_examples_golden.py is 0.015); the residual comes from float32
-last-bit differences between XLA's CPU kernels and torch's."""
+last-bit differences between XLA's CPU kernels and torch's. With two skies
+the bar is 4e-4 (measured: 2.4e-4): the port's sky differs from the JAX
+package's on about 5% of the texels, those of the cloud layer whose density
+lookups flip on a last-bit difference (tests/test_torch_sky.py), and the sky
+pixels show it."""
 
 import dataclasses
 import os
@@ -22,6 +27,12 @@ from voxelrt.app import testing
 
 from voxelrt_torch.config import RenderConfig as TCfg
 from voxelrt_torch.scene import Scene as TScene
+
+import torch  # noqa: E402
+
+# One thread per test process: the suite runs several processes side by
+# side, and the tensors here are small.
+torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPP, SPL = 4, 2
@@ -101,3 +112,34 @@ def test_scene_finish_example6_with_sky():
     assert ts.renderer.scene_data.sky is not None
     assert np.isfinite(timg).all() and timg.std() > 0.05
     assert _rmse(timg, jimg) < 1e-4, _rmse(timg, jimg)
+
+
+def test_scene_finish_sky_scene_with_no_cache_file(tmp_path, monkeypatch):
+    """The slice as a whole: example6 through both packages, neither finding
+    a cached sky. The JAX package computes its sky under the (empty) working
+    directory, the port on the CPU into its own empty directory."""
+    jc, tc = _cfgs(grid_res=128, voxel_dx=1.0 / 64.0)
+    (tmp_path / "j").mkdir()
+    monkeypatch.chdir(tmp_path / "j")
+    port_cache = tmp_path / "t"
+
+    def jmake(argv=None, **kw):
+        return JScene(config=dataclasses.replace(jc, **kw), quiet=True)
+
+    def tmake(argv=None, **kw):
+        return TScene(config=dataclasses.replace(tc, **kw), quiet=True,
+                      device="cpu", sky_cache_dir=str(port_cache))
+
+    jimg = _example6(jmake).finish(spp=SPP, save=False)
+    timg = _example6(tmake).finish(spp=SPP, save=False)
+    assert os.listdir(port_cache) == os.listdir(tmp_path / "j" / ".skycache")
+    assert np.isfinite(timg).all() and timg.std() > 0.05
+    rmse = _rmse(timg, jimg)
+    print(f"each package its own sky: image RMSE {rmse:.3e}")
+    assert rmse < 4e-4, rmse
+    # with the port's own file in place of the JAX package's, the JAX
+    # package renders the port's sky: one sky, the tight bar
+    os.replace(port_cache / os.listdir(port_cache)[0],
+               tmp_path / "j" / ".skycache" / os.listdir(port_cache)[0])
+    jimg2 = _example6(jmake).finish(spp=SPP, save=False)
+    assert _rmse(timg, jimg2) < 1e-4, _rmse(timg, jimg2)

@@ -37,6 +37,10 @@ from voxelrt_torch import interop
 from voxelrt_torch.ops import prng
 from voxelrt_torch.render import pipeline as tpl
 
+# One thread per test process: the suite runs several processes side by
+# side, and the tensors here are small.
+torch.set_num_threads(1)
+
 SCALE = 0.5
 AW, AH = 32, 16
 

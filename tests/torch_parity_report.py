@@ -46,7 +46,7 @@ def main():
     tu, tv, _ = tpl.wavefront_constants(tc1, 1.0, "cpu")
     skeys, jit = tpl.sample_keys_of(prng.key(3), 1)
     to = tpt.trace_sample(tcfg, tsd, tp, tu, tv, skeys[0],
-                          (torch.tensor(jit[0][0]), torch.tensor(jit[0][1])))
+                          (jit[0][0], jit[0][1]))
     for name in ("diffuse", "specular"):
         a, b = _pack(jo[name]), torch.stack(list(to[name]), -1).numpy()
         out[f"trace_sample {name}"] = dict(

@@ -30,8 +30,10 @@ class HeadlessRenderer:
     """``device=None`` renders on the CUDA card and raises when there is
     none; pass ``device="cpu"`` for the plain PyTorch path."""
 
-    def __init__(self, cfg, scene, seed=0, quiet=False, device=None):
+    def __init__(self, cfg, scene, seed=0, quiet=False, device=None,
+                 sky_cache_dir=".skycache"):
         self.device = resolve_device(device)
+        self.sky_cache_dir = sky_cache_dir
         # voxel_edges/exposure are per-frame values (RenderParams), kept
         # out of the static config as in the JAX package.
         self._voxel_edges = float(cfg.voxel_edges)
@@ -62,14 +64,16 @@ class HeadlessRenderer:
         arrays = sc.world.device_arrays()
         sky = None
         if self.cfg.use_physical_sky:
-            from voxelrt_torch.sky.atmos import load_sky
+            from voxelrt_torch.sky.atmos import prepare_sky
 
-            sky = load_sky(
+            sky = prepare_sky(
                 self.cfg,
                 np.asarray(sc._light_direction, np.float32),
                 np.asarray(sc._light_color, np.float32) * self.cfg.light_weight,
-                float(sc._light_cone_cos_theta_max), self.device,
-                cloud_tex=getattr(sc, "_cloud_texture", None))
+                float(sc._light_cone_cos_theta_max), quiet=self.quiet,
+                cache_dir=self.sky_cache_dir,
+                cloud_tex=getattr(sc, "_cloud_texture", None),
+                device=self.device)
         tables = build_pallas_tables(sc.world.material, arrays["voxels"],
                                      self.cfg.grid_res)
         if self.cfg.use_directional_light:

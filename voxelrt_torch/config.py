@@ -71,9 +71,9 @@ class RenderConfig:
     # ray in place into its sun-cone shadow ray instead of the renderer
     # issuing a separate any-hit shadow dispatch per depth (``nee=`` of
     # ops/dda_kernel.raytrace). The JAX package tests equality with the
-    # two-dispatch formulation. The port reads it: True is the only value it
-    # runs, False raises NotImplementedError (the explicit shadow dispatch is
-    # not ported).
+    # two-dispatch formulation. The port reads it: False runs a closest-hit
+    # dispatch and a separate any-hit sun-shadow dispatch (B1's shadow mode)
+    # per depth.
     nee_in_kernel: bool = True
 
     # Traversal bound (renderer/raytracer.py:103).
@@ -101,7 +101,7 @@ class RenderConfig:
     # dispatching the traversal kernel, so that terminated lanes compact to
     # the back and live blocks become spatially tight. Default OFF in the
     # JAX package. The port reads it: True raises NotImplementedError
-    # (sorted routing is not ported).
+    # (sorted routing is not ported yet).
     sort_rays: bool = False
 
     # Rows of rays per block of the JAX package's traversal kernel (a
@@ -172,7 +172,8 @@ class RenderConfig:
     # default 1024² skybox already spans ~1.75 texels. The fetch kernel
     # (B2) then reads one corner instead of four and returns the packed
     # texel words losslessly. 'bilinear' is the reference's jittered
-    # 4-corner interpolation; the port raises NotImplementedError for it.
+    # 4-corner interpolation of both maps, over the whole wavefront through
+    # the bilinear fetch kernel (B3).
     sky_fetch: str = "stochastic"  # 'stochastic' | 'bilinear'
 
     # Per-sample uniform draws: 'pcg3d' derives each draw slot by hashing

@@ -4,8 +4,12 @@
 ``RenderParams`` as numpy arrays (``np.asarray`` of each JAX array; this
 module never imports JAX) and returns the port's ``SceneData`` and
 ``RenderParams`` on ``device``; ``render_state_from_jax`` does the same for
-a ``RenderState``. Tests use them to feed both packages the same inputs; it is also how a sky that the JAX package precomputed reaches the
-port before the sky precompute is ported.
+a ``RenderState``; ``sky_from_jax_arrays`` for a ``SkyData`` alone. Tests
+use them to feed both packages the same inputs, the sky included (each
+package computes its own otherwise, equal only up to float32 rounding and
+the cloud texels that flip with it). In the other direction a sky travels as
+the cache file: ``sky.atmos.prepare_sky`` writes ``sky_<key>.npz`` in the JAX
+package's format and under its key.
 """
 
 from __future__ import annotations
@@ -28,6 +32,24 @@ def _i32(a, device):
             np.int32).copy()).to(device)
 
 
+def sky_from_jax_arrays(sky: dict, device) -> SkyData:
+    """sky: mapping of the JAX package's SkyData fields as numpy arrays.
+    The bf16-packed words are taken over when the mapping has them (the JAX
+    package packs them only on its kernel path) and packed from the maps
+    otherwise; both give the same words."""
+    from voxelrt_torch.sky.atmos import make_sky
+
+    if sky.get("packed_scatt") is None or sky.get("packed_trans") is None:
+        return make_sky(sky["skybox_scattering"], sky["skybox_transmittance"],
+                        sky["cloud_ambient"], sky["trans_lut"], device)
+    return SkyData(
+        np.asarray(sky["skybox_scattering"], np.float32),
+        np.asarray(sky["skybox_transmittance"], np.float32),
+        np.asarray(sky["cloud_ambient"], np.float32),
+        np.asarray(sky["trans_lut"], np.float32),
+        _i32(sky["packed_scatt"], device), _i32(sky["packed_trans"], device))
+
+
 def from_jax_arrays(scene: dict, params: dict, device):
     """scene: mapping with ``occ_words``, ``voxels``, ``mat_params``,
     ``tables`` (a mapping of the PallasTables fields, ``grid_res``
@@ -42,13 +64,7 @@ def from_jax_arrays(scene: dict, params: dict, device):
                              for f in PallasTables._fields})
     sky = None
     if scene.get("sky") is not None:
-        s = scene["sky"]
-        sky = SkyData(
-            np.asarray(s["skybox_scattering"], np.float32),
-            np.asarray(s["skybox_transmittance"], np.float32),
-            np.asarray(s["cloud_ambient"], np.float32),
-            np.asarray(s["trans_lut"], np.float32),
-            _i32(s["packed_scatt"], device), _i32(s["packed_trans"], device))
+        sky = sky_from_jax_arrays(scene["sky"], device)
     sd = SceneData(
         occ_words=_i32(scene["occ_words"], device),
         voxels=_i32(scene["voxels"], device),

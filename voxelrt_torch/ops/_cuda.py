@@ -32,10 +32,12 @@ BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 # like its plain PyTorch twin (torch runs separate multiply and add ops).
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v"]
-SOURCES = ("dda", "texfetch", "resample")
+SOURCES = ("dda", "texfetch", "resample", "probe")
 
-LAUNCHES = {"traverse": 0, "point_fetch": 0, "bilinear_fetch": 0,
-            "temporal_taps": 0}
+# "traverse" counts every B1 launch, "traverse_shadow" those of them in
+# shadow mode.
+LAUNCHES = {"traverse": 0, "traverse_shadow": 0, "point_fetch": 0,
+            "bilinear_fetch": 0, "temporal_taps": 0, "probe": 0}
 
 _libs: dict = {}
 

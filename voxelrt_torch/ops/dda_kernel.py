@@ -11,7 +11,14 @@ and fetch deferral only schedule that per-ray sequence (the JAX package
 tests the queued and plain forms bitwise equal), so both versions here run
 it per ray: the CUDA kernel (csrc/dda.cu) one thread per ray, the plain
 twin below as a masked loop over the still-active rays. The sun-open
-certificate early-out (identical verdicts) is not implemented.
+certificate early-out (identical verdicts) is not implemented:
+``use_sun_open`` is accepted and ignored.
+
+Shadow mode (``any_hit=True, fetch_colors=False``, the explicit sun-shadow
+dispatch of ``nee_in_kernel=False``) runs the same march and in-cell DDA
+without normal tracking or the colour fetch and returns the distance only:
+finite on the first occupied voxel of the ray's path (or when the advance
+budget runs out), inf otherwise.
 
 ``raytrace`` sends CPU tensors to the twin and launches the kernel on CUDA
 tensors. There is no fallback from one to the other.
@@ -63,6 +70,8 @@ def upload_tables(tables, device) -> DeviceTables:
 
 
 class PallasTraceResult(NamedTuple):
+    """In shadow mode only ``distance`` is filled; the rest is None."""
+
     distance: torch.Tensor  # f32, inf = miss
     ipos: V3  # int32 components
     normal: V3  # f32 components
@@ -107,8 +116,9 @@ def _sel(m, a, b):
     return torch.where(m, a, b)
 
 
-def _init_rays(res, o, d, tmin, tmax):
-    """Ray/AABB clip + entry state (dda_pallas.py init_rays)."""
+def _init_rays(res, o, d, tmin, tmax, any_hit=False):
+    """Ray/AABB clip + entry state (dda_pallas.py init_rays); ``any_hit``
+    starts with a zero normal, as the shadow mode tracks none."""
     ox, oy, oz = o
     dx, dy, dz = d
     fres = float(res)
@@ -140,6 +150,8 @@ def _init_rays(res, o, d, tmin, tmax):
     idist = [torch.abs(qc - fres * 0.5) for qc in q]
     mx = torch.maximum(torch.maximum(idist[0], idist[1]), idist[2])
     n0 = [_sel(alive, (ic == mx).to(torch.float32), 0.0) for ic in idist]
+    if any_hit:
+        n0 = [torch.zeros_like(c) for c in n0]
     ip = [_sel(alive, pc.to(torch.int64), -1) for pc in p0]
     ray = dict(ox=ox, oy=oy, oz=oz, dx=dx, dy=dy, dz=dz, ivx=inv[0],
                ivy=inv[1], ivz=inv[2], sx=sgn[0], sy=sgn[1], sz=sgn[2],
@@ -300,6 +312,8 @@ def _step(T, r, s, max_advances):
         for c in range(3):
             o_p[c][mi] = nap[c]
             o_n[c][mi] = an[c]
+    if T.get("any_hit"):
+        o_n = [torch.zeros_like(c) for c in o_n]
     o_adv = ss["adv"] + (~occ2).to(torch.int64) + steps
     exhausted = o_adv >= max_advances
     out["t"][li] = o_t
@@ -352,10 +366,21 @@ def _hit_color(T, px, py, pz, hit):
     return out
 
 
+def _check_mode(any_hit, fetch_colors, nee):
+    if any_hit != (not fetch_colors):
+        raise ValueError("B1 has two modes: closest hit with the colour fetch "
+                         "(any_hit=False, fetch_colors=True) and shadow "
+                         "(any_hit=True, fetch_colors=False)")
+    if any_hit and nee is not None:
+        raise ValueError("in-kernel NEE requires the closest-hit mode")
+
+
 def raytrace_plain(tables: DeviceTables, origin: V3, direction: V3, tmin,
-                   tmax, max_advances: int = 512, nee=None, alive=None
+                   tmax, max_advances: int = 512, nee=None, alive=None,
+                   any_hit=False, fetch_colors=True, use_sun_open=False
                    ) -> PallasTraceResult:
     """Plain PyTorch twin of B1 (see ``raytrace`` for the arguments)."""
+    _check_mode(any_hit, fetch_colors, nee)
     n = origin.x.shape[0]
     dev = origin.x.device
     T = dict(lod2=tables.lod2_words, solid=tables.solid_words,
@@ -365,13 +390,19 @@ def raytrace_plain(tables: DeviceTables, origin: V3, direction: V3, tmin,
              colors=tables.cell_colors, palette=tables.palette_words)
     T = {k: v.to(torch.int64) for k, v in T.items()}
     T["res"] = tables.grid_res
+    T["any_hit"] = any_hit
     tmin = torch.as_tensor(tmin, dtype=torch.float32, device=dev).expand(n)
     tmax = torch.as_tensor(tmax, dtype=torch.float32, device=dev).expand(n)
     ray, st = _init_rays(tables.grid_res, tuple(origin), tuple(direction),
-                         tmin, tmax)
+                         tmin, tmax, any_hit)
     if alive is not None:
         st["active"] = st["active"] & (alive != 0)
     st = _run(T, ray, st, max_advances)
+    if any_hit:
+        dist = _sel(st["t"] >= BIG, float("inf"), st["t"])
+        if alive is not None:
+            dist = _sel(alive == 0, float("inf"), dist)
+        return PallasTraceResult(dist, None, None, None, None, None)
     px, py, pz, hnx, hny, hnz = _unpack_word(st["word"])
     flip = ((direction.x * hnx + direction.y * hny) + direction.z * hnz) > 0.0
     nrm = [_sel(flip, -c, c) for c in (hnx, hny, hnz)]
@@ -466,8 +497,8 @@ def nee_params(u, alt_t, light_dir, tangent, bitangent, cone_cos, eps_grid,
 
 
 def raytrace(tables: DeviceTables, origin: V3, direction: V3, tmin, tmax,
-             max_advances: int = 512, nee=None, alive=None
-             ) -> PallasTraceResult:
+             max_advances: int = 512, nee=None, alive=None, any_hit=False,
+             fetch_colors=True, use_sun_open=False) -> PallasTraceResult:
     """Trace rays in grid space [0, res)^3 (B1).
 
     origin/direction: V3 of (N,) f32; tmin: a float, the same for every ray;
@@ -475,14 +506,19 @@ def raytrace(tables: DeviceTables, origin: V3, direction: V3, tmin, tmax,
     (from :func:`nee_params`) turns on in-kernel NEE and fills
     ``nee_visible``. ``alive``: optional (N,) bool/int mask; dead rays return
     the canonical miss (distance inf, ipos -1, normal 0, iters 0, color 0,
-    active 0, nee_visible 0). CPU tensors run the plain twin; CUDA tensors
-    launch the kernel."""
+    active 0, nee_visible 0). ``any_hit=True, fetch_colors=False`` is the
+    shadow mode: only ``distance`` comes back (inf for a dead ray).
+    ``use_sun_open`` (the sun-visibility certificate early-out of the JAX
+    kernel, identical verdicts) is accepted and not used. CPU tensors run
+    the plain twin; CUDA tensors launch the kernel."""
     dev = origin.x.device
     if dev.type == "cpu":
         return raytrace_plain(tables, origin, direction, tmin, tmax,
-                              max_advances, nee, alive)
+                              max_advances, nee, alive, any_hit,
+                              fetch_colors, use_sun_open)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    _check_mode(any_hit, fetch_colors, nee)
     n = origin.x.shape[0]
     f32, i32 = torch.float32, torch.int32
     for name, c in zip(("ox", "oy", "oz", "dx", "dy", "dz"),
@@ -503,17 +539,20 @@ def raytrace(tables: DeviceTables, origin: V3, direction: V3, tmin, tmax,
         _cuda.require(nee["scalars"], "nee scalars", f32, dev, (12,))
         nee_args = [nee["u0"], nee["u1"], nee["alt_t"], nee["scalars"]]
     out_t = torch.empty(n, dtype=f32, device=dev)
-    ipos = [torch.empty(n, dtype=i32, device=dev) for _ in range(3)]
-    nrm = [torch.empty(n, dtype=f32, device=dev) for _ in range(3)]
-    iters, color, act = (torch.empty(n, dtype=i32, device=dev)
-                         for _ in range(3))
+    if any_hit:
+        ipos, nrm, iters, color, act = [None] * 3, [None] * 3, None, None, None
+    else:
+        ipos = [torch.empty(n, dtype=i32, device=dev) for _ in range(3)]
+        nrm = [torch.empty(n, dtype=f32, device=dev) for _ in range(3)]
+        iters, color, act = (torch.empty(n, dtype=i32, device=dev)
+                             for _ in range(3))
     vis = torch.empty(n, dtype=i32, device=dev) if nee is not None else None
     pal = tables.palette_words if tables.palette_words.shape[0] else None
 
     fn = _cuda.lib("dda").traverse
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_int]
                    + [ctypes.c_void_p] * 6 + [ctypes.c_float]
-                   + [ctypes.c_void_p] * 17 + [ctypes.c_longlong,
+                   + [ctypes.c_void_p] * 17 + [ctypes.c_int, ctypes.c_longlong,
                                                ctypes.c_void_p])
     fn.restype = ctypes.c_int
     err = fn(*(ptr(getattr(tables, f)) for f in DeviceTables._fields[:9]),
@@ -521,9 +560,13 @@ def raytrace(tables: DeviceTables, origin: V3, direction: V3, tmin, tmax,
              *(ptr(c) for c in (*origin, *direction)), float(tmin), ptr(tmax),
              ptr(alive_t), *(ptr(a) for a in nee_args), ptr(out_t),
              *(ptr(c) for c in ipos), *(ptr(c) for c in nrm), ptr(iters),
-             ptr(color), ptr(act), ptr(vis), n, _cuda.stream_ptr(dev))
+             ptr(color), ptr(act), ptr(vis), int(any_hit), n,
+             _cuda.stream_ptr(dev))
     _cuda.check(err, "traverse")
     _cuda.LAUNCHES["traverse"] += 1
+    if any_hit:
+        _cuda.LAUNCHES["traverse_shadow"] += 1
+        return PallasTraceResult(out_t, None, None, None, None, None)
     return PallasTraceResult(distance=out_t, ipos=V3(*ipos), normal=V3(*nrm),
                              iters=iters, color_word=color, active=act,
                              nee_visible=vis)

@@ -13,13 +13,16 @@ keys, int64 tensors for per-pixel keys. ``key(seed)`` matches
 
 ``uniform`` matches ``jax.random.uniform`` as JAX 0.9 lays its bits out with
 ``jax_threefry_partitionable=True`` (the default there): the counter of
-element i is the 64-bit value i split into (hi, lo) words, and the 32 random
-bits are the XOR of Threefry's two output words.
+element i (its row-major index in the requested shape) is the 64-bit value i
+split into (hi, lo) words, and the 32 random bits are the XOR of Threefry's
+two output words. ``uniform`` draws a tensor of any shape on a device, for one
+key or for a batch of keys at once, in wrapping int32 arithmetic (half the
+bytes of the int64 form: the sky precompute draws over a hundred million
+numbers per call).
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 M32 = 0xFFFFFFFF
@@ -64,11 +67,55 @@ def fold_in(k, data):
     return threefry2x32(k[0], k[1], zero, data)
 
 
-def uniform(k, n: int):
-    """``jax.random.uniform(k, (n,))`` in float32, as a numpy array."""
-    lo = np.arange(n, dtype=np.int64)
-    y0, y1 = threefry2x32(k[0], k[1], np.zeros_like(lo), lo)
-    bits = (y0 ^ y1).astype(np.uint32)
-    f = ((bits >> np.uint32(9)) | np.uint32(0x3F800000)).view(np.float32)
-    return np.maximum(np.float32(0.0), (f - np.float32(1.0)) * np.float32(1.0)
-                      + np.float32(0.0))
+def _i32(v, device):
+    """A u32 value (python int, or int64 tensor of any shape) as an int32
+    tensor with the same bits."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=torch.int32)
+    v = int(v) & M32
+    return torch.tensor(v - ((v >> 31) << 32), dtype=torch.int32,
+                        device=device)
+
+
+def _rotl_i32(x, d):
+    return (x << d) | ((x >> (32 - d)) & ((1 << d) - 1))
+
+
+def _threefry_i32(k0, k1, x1):
+    """Threefry-2x32 of the counter pair (0, x1) in wrapping int32 tensor
+    arithmetic; ``x1`` is consumed."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = ks[0].expand(x1.shape).clone()
+    x1 += ks[1]
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x0 += x1
+            x1 = _rotl_i32(x1, r)
+            x1 ^= x0
+        x0 += ks[(i + 1) % 3]
+        x1 += ks[(i + 2) % 3] + (i + 1)
+    return x0, x1
+
+
+def uniform(k, shape, device):
+    """``jax.random.uniform(k, shape)`` in float32, as a tensor on
+    ``device``. The key entries are python ints or int64 tensors of one
+    common shape B (a batch of keys, as ``fold_in`` of a tensor returns
+    them); the result has shape B + shape, each key drawing what it would
+    draw alone."""
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    n = 1
+    for s in shape:
+        n *= int(s)
+    if n >= 1 << 32:
+        raise ValueError("uniform: more than 2**32 draws per key")
+    k0, k1 = _i32(k[0], device), _i32(k[1], device)
+    batch = tuple(torch.broadcast_shapes(k0.shape, k1.shape))
+    # arange in int64, then the wrapping cast: counters from 2**31 on keep
+    # their bits
+    idx = torch.arange(n, dtype=torch.int64, device=device).to(torch.int32)
+    x1 = idx.expand(batch + (n,)).clone()
+    y0, y1 = _threefry_i32(k0[..., None], k1[..., None], x1)
+    y0 ^= y1
+    bits = ((y0 >> 9) & 0x7FFFFF) | 0x3F800000
+    return (bits.view(torch.float32) - 1.0).reshape(batch + shape)

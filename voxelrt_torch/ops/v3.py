@@ -7,8 +7,10 @@ package does. Keeping the same layout keeps each formula's operation order,
 so the port's float32 results track the reference's.
 
 Binary operators accept another V3 or a per-ray scalar (a python number, a
-0-d tensor or an (N,) tensor) and reject rank-2 operands, which would
-broadcast an (N, 1) against (N,) components into (N, N).
+0-d tensor or a tensor shaped like the components). Against (N,) components
+they reject rank-2 operands, which would broadcast an (N, 1) into (N, N);
+components of rank 0 or of rank 2 and more (the sky precompute's batched
+lanes) broadcast as tensors do.
 """
 
 from __future__ import annotations
@@ -18,10 +20,11 @@ from typing import Any, NamedTuple
 import torch
 
 
-def _coerce(other):
+def _coerce(other, ref=None):
     if isinstance(other, V3):
         return other.x, other.y, other.z
-    if isinstance(other, torch.Tensor) and other.dim() > 1:
+    if (isinstance(other, torch.Tensor) and other.dim() > 1
+            and isinstance(ref, torch.Tensor) and ref.dim() == 1):
         raise TypeError(
             f"V3 binary op with rank-{other.dim()} operand (shape "
             f"{tuple(other.shape)}): per-ray scalars must be rank<=1")
@@ -36,35 +39,35 @@ class V3(NamedTuple):
     z: Any
 
     def __add__(self, o):
-        ox, oy, oz = _coerce(o)
+        ox, oy, oz = _coerce(o, self.x)
         return V3(self.x + ox, self.y + oy, self.z + oz)
 
     def __radd__(self, o):
-        ox, oy, oz = _coerce(o)
+        ox, oy, oz = _coerce(o, self.x)
         return V3(ox + self.x, oy + self.y, oz + self.z)
 
     def __sub__(self, o):
-        ox, oy, oz = _coerce(o)
+        ox, oy, oz = _coerce(o, self.x)
         return V3(self.x - ox, self.y - oy, self.z - oz)
 
     def __rsub__(self, o):
-        ox, oy, oz = _coerce(o)
+        ox, oy, oz = _coerce(o, self.x)
         return V3(ox - self.x, oy - self.y, oz - self.z)
 
     def __mul__(self, o):
-        ox, oy, oz = _coerce(o)
+        ox, oy, oz = _coerce(o, self.x)
         return V3(self.x * ox, self.y * oy, self.z * oz)
 
     def __rmul__(self, o):
-        ox, oy, oz = _coerce(o)
+        ox, oy, oz = _coerce(o, self.x)
         return V3(ox * self.x, oy * self.y, oz * self.z)
 
     def __truediv__(self, o):
-        ox, oy, oz = _coerce(o)
+        ox, oy, oz = _coerce(o, self.x)
         return V3(self.x / ox, self.y / oy, self.z / oz)
 
     def __rtruediv__(self, o):
-        ox, oy, oz = _coerce(o)
+        ox, oy, oz = _coerce(o, self.x)
         return V3(ox / self.x, oy / self.y, oz / self.z)
 
     def __neg__(self):

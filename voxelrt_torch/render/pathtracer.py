@@ -1,12 +1,18 @@
 """Wavefront path-tracing sample pass (the PyTorch port of
-voxelrt/render/pathtracer.py, in-kernel-NEE path).
+voxelrt/render/pathtracer.py, kernel path).
 
 One call traces one progressive sample for every ray of a wavefront: ray
 generation, a statically unrolled 4-deep bounce loop with NEE + MIS against
 the sun cone light, sky/emissive termination, the deferred escape sky, and
 the diffuse/specular split + G-buffer epilogue. Traversal goes through
-kernel B1 (ops/dda_kernel.py) with in-kernel NEE at every depth; the escape
-sky through kernels B2/B3 (sky/atmos.py).
+kernel B1 (ops/dda_kernel.py): with ``nee_in_kernel`` (the default) one
+closest-hit dispatch per depth that also traces the sun-cone shadow ray,
+without it a closest-hit dispatch and a separate any-hit sun-shadow dispatch
+per depth. The escape sky goes through kernels B2/B3 (sky/atmos.py):
+``sky_fetch='stochastic'`` reads one corner per ray through B2,
+``'bilinear'`` four corners of both maps through B3 over the whole
+wavefront; ``nee_transmittance='per_ray'`` runs B3 per light direction at
+every depth.
 
 Reference quirks preserved on purpose (they are part of the image):
   * cone pdf that ignores orientation (renderer/math_utils.py:61-65);
@@ -24,9 +30,7 @@ reflection distance instead of the reference's inf (which poisons its
 reflection-depth G-buffer with NaNs, renderer/pathtracer.py:414-417,543-547).
 
 Not ported yet (they raise NotImplementedError): ReSTIR-PT, sorted ray
-routing, the explicit any-hit shadow dispatch (``nee_in_kernel=False``), the
-table draws (``rng_draws='table'``) and the jittered 4-corner sky fetch
-(``sky_fetch='bilinear'``).
+routing (``sort_rays``) and the table draws (``rng_draws='table'``).
 """
 
 from __future__ import annotations
@@ -148,11 +152,7 @@ def check_supported(cfg):
     """Raise for the off-default features this slice does not port."""
     for flag, what in ((cfg.use_restir_pt, "ReSTIR-PT"),
                        (cfg.sort_rays, "sorted ray routing"),
-                       (not cfg.nee_in_kernel,
-                        "the explicit shadow dispatch (nee_in_kernel=False)"),
-                       (cfg.rng_draws != "pcg3d", "rng_draws='table'"),
-                       (cfg.use_physical_sky and cfg.sky_fetch != "stochastic",
-                        "sky_fetch='bilinear'")):
+                       (cfg.rng_draws != "pcg3d", "rng_draws='table'")):
         if flag:
             raise NotImplementedError(f"{what} is not ported yet")
 
@@ -193,10 +193,16 @@ class Hit(NamedTuple):
     iters: torch.Tensor  # (N,) int32 traversal advance count
 
 
-def next_hit(cfg, scene, params, pos: V3, d: V3, mask, nee_u=None):
+def next_hit(cfg, scene, params, pos: V3, d: V3, mask, shadow_ray=False,
+             sun_shadow=False, nee_u=None):
     """Closest hit of floor plane + voxel grid (renderer/pathtracer.py:218-244).
 
     mask: rays to trace; the others are dead lanes of the traversal kernel.
+    ``shadow_ray``: an any-hit dispatch (B1's shadow mode): only ``closest``
+    of the result is meaningful, finite when something blocks the ray.
+    ``sun_shadow`` marks shadow rays sampled within the sun's NEE cone, for
+    which the JAX kernel may use its sun-visibility certificate; the port's
+    kernel gives the same verdicts without it.
     ``nee_u``: (u0, u1) cone uniforms enabling in-kernel NEE; returns
     (Hit, nee_visible) then, a plain Hit otherwise. The floor crossing is
     the kernel's alternative shadow origin; floor OCCLUSION of the shadow
@@ -244,10 +250,14 @@ def next_hit(cfg, scene, params, pos: V3, d: V3, mask, nee_u=None):
                          params.light_cone_cos_theta_max, EPS * inv_size,
                          EPS, dev)
     tr = raytrace(scene.tables, eye_scaled, d, EPS, tmax,
-                  cfg.max_dda_advances, nee=nee, alive=mask)
+                  cfg.max_dda_advances, nee=nee, alive=mask,
+                  any_hit=shadow_ray, fetch_colors=not shadow_ray,
+                  use_sun_open=sun_shadow)
     vox_dist = tr.distance * cfg.voxel_dx
     vox_ok = mask & (vox_dist < closest)
     closest = torch.where(vox_ok, vox_dist, closest)
+    if shadow_ray:
+        return Hit(closest, normal, albedo, hit_light, mat_id, tr.iters)
     uv = vclip(eye_scaled + d * tr.distance
                - V3(*(c.to(torch.float32) for c in tr.ipos)), 0.0, 1.0)
     color, v_is_light, v_mat = fetch_voxel_surface(
@@ -383,13 +393,17 @@ def trace_sample(cfg, scene, params, u, v, sample_keys, jitter_u,
     draws = Pcg3dDraws(kd[0], kd[1])
 
     use_nee = cfg.use_directional_light
+    # In-kernel NEE: the traversal kernel itself traces each surface's
+    # sun-cone shadow ray, replacing the separate any-hit dispatch per depth
+    # (pathtracer.py:600-602, with use_pallas_dda read as True).
+    use_knee = cfg.nee_in_kernel and use_nee
     for depth in range(cfg.max_ray_depth):
         base = 8 * depth
         u_nee = (draws[base], draws[base + 1])
         u_bsdf = (draws[base + 2], draws[base + 3], draws[base + 4])
         u_sky = V3(draws[base + 5], draws[base + 6], draws[base + 7])
 
-        if use_nee:
+        if use_knee:
             hit, knee_vis = next_hit(cfg, scene, params, pos, d, tracing,
                                      nee_u=u_nee)
         else:
@@ -455,14 +469,19 @@ def trace_sample(cfg, scene, params, u, v, sample_keys, jitter_u,
                     surf, light_sample_bsdf_pdf, first_light_sample_bsdf_pdf)
 
             shadow_mask = surf & (ndl > 0.0)
-            # kernel verdict covers voxel occlusion; the floor plane is a
-            # closed-form check (quirky extent bound included)
-            dyl = light_dir.y
-            fd = (params.floor_height - spos.y) / torch.where(
-                dyl == 0.0, 1e-20, dyl)
-            hpf = spos + light_dir * fd
-            floor_occ = (fd > EPS) & (length(hpf - hpf.y) < 10.0)
-            visible = shadow_mask & (knee_vis != 0) & ~floor_occ
+            if use_knee:
+                # kernel verdict covers voxel occlusion; the floor plane is
+                # a closed-form check (quirky extent bound included)
+                dyl = light_dir.y
+                fd = (params.floor_height - spos.y) / torch.where(
+                    dyl == 0.0, 1e-20, dyl)
+                hpf = spos + light_dir * fd
+                floor_occ = (fd > EPS) & (length(hpf - hpf.y) < 10.0)
+                visible = shadow_mask & (knee_vis != 0) & ~floor_occ
+            else:
+                sh = next_hit(cfg, scene, params, spos, light_dir,
+                              shadow_mask, shadow_ray=True, sun_shadow=True)
+                visible = shadow_mask & ~torch.isfinite(sh.closest)
             nee_visible = visible.to(torch.float32)
 
             light_mis = torch.ones((), dtype=torch.float32, device=dev)

@@ -127,9 +127,13 @@ def wavefront_constants(cfg, render_scale, device):
 
 def sample_keys_of(key, k_samples):
     """The k per-sample keys of one launch (pipeline.py:225-228) and their
-    TAA jitter uniforms (pipeline.py:253-255)."""
+    TAA jitter uniforms (pipeline.py:253-255), a (k, 2) float32 tensor on
+    the host, drawn for all keys in one call."""
     skeys = [key] + [fold_in(key, 7000 + i) for i in range(1, k_samples)]
-    jit = [uniform(fold_in(sk, 417), 2) for sk in skeys]
+    jkeys = [fold_in(sk, 417) for sk in skeys]
+    jit = uniform(tuple(torch.tensor([jk[w] for jk in jkeys],
+                                     dtype=torch.int64) for w in (0, 1)),
+                  (2,), "cpu")
     return skeys, jit
 
 
@@ -156,8 +160,7 @@ def accumulate(cfg, scene, params, state: RenderState, key,
     skeys, jit = sample_keys_of(key, k)
     k0 = torch.tensor([sk[0] for sk in skeys], dtype=torch.int64, device=dev)
     k1 = torch.tensor([sk[1] for sk in skeys], dtype=torch.int64, device=dev)
-    ju = torch.tensor([[j[0], j[1]] for j in jit], dtype=torch.float32,
-                      device=dev)
+    ju = jit.to(dev)
     out = trace_sample(cfg, scene, params, u, v,
                        (k0[s_of_ray], k1[s_of_ray]),
                        (ju[s_of_ray, 0], ju[s_of_ray, 1]),

@@ -37,15 +37,18 @@ voxelrt_torch headless renderer (CUDA)
 
 class Scene:
     def __init__(self, voxel_edges=0.06, exposure=3, image_res=None,
-                 config=None, seed=0, quiet=False, device=None):
+                 config=None, seed=0, quiet=False, device=None,
+                 sky_cache_dir=".skycache"):
         """Mirrors scene.py:113-129. Extra kwargs: resolution, full
-        RenderConfig override, RNG seed, torch device."""
+        RenderConfig override, RNG seed, torch device, and the directory
+        where a computed physical sky is cached (and looked up first)."""
         from voxelrt_torch import resolve_device
         from voxelrt_torch.camera import Camera
         from voxelrt_torch.config import RenderConfig
         from voxelrt_torch.world import VoxelWorld
 
         self.device = resolve_device(device)
+        self.sky_cache_dir = sky_cache_dir
         if config is None:
             config = RenderConfig(
                 image_res=tuple(image_res) if image_res else SCREEN_RES,
@@ -154,7 +157,8 @@ class Scene:
             )
             self._renderer = HeadlessRenderer(cfg, self, seed=self.seed,
                                               quiet=self.quiet,
-                                              device=self.device)
+                                              device=self.device,
+                                              sky_cache_dir=self.sky_cache_dir)
         return self._renderer
 
     def finish(self, spp=512, out_path=None, camera_pos=None, look_at=None,
