@@ -11,7 +11,10 @@ the loop-construct probe.
 Phases, each printing its own line: 1 device, 2 build, 3 scene set-up, 4 the
 still path (64 spp at 16 samples per launch, the launch counters set to 0
 just before it and read just after), 5 B1 against its twin on that path's
-own four dispatches (the twin on 4 of a dispatch's 16 samples), 6 the
+own four dispatches (the twin on 4 of a dispatch's 16 samples; every output
+bit-equal, with the config's ``dda_sun_mode`` and with 'off', each
+dispatch once under ``torch.cuda.set_sync_debug_mode("error")``; the alive
+count and the NEE shadow rays marched and settled at conversion), 6 the
 steady-state rate and a profiled launch, 7 B2 and B3 against their twins on
 main-path inputs, 8 a small-render check of the card path against the CPU
 path; 9 the moving path (24 moving frames at 640x360 active, then 6 still
@@ -23,8 +26,10 @@ the card at the default knobs into an empty temporary cache, then found
 there, and the same sky at test knobs on the card against the CPU; 15 every
 example through ``tools/run_example_torch.py``'s function at 16 spp; 16
 example6 with ``nee_in_kernel=False``, ``sky_fetch='bilinear'`` and
-``nee_transmittance='per_ray'``: B1's shadow dispatch and B3 at the full
-wavefront against their twins on that path's own inputs, its rate beside the
+``nee_transmittance='per_ray'``: B1's closest-hit dispatches (no NEE)
+and shadow dispatches of a launch (checked as in 5, the shadow mode's
+early-out being ``use_sun_open``) and B3 at the full wavefront against
+their twins on that path's own inputs, its rate beside the
 main path's, and small renders against the main path and the CPU; 17 P
 against its plain version for every variant, then ``tools/cuda_probe.py``'s
 table; then the kernels JSON line, the card's name and power limit, and the
@@ -323,6 +328,7 @@ def phase_shadow_path(main_steady_ms):
     n_launch = 3
     depth = r.cfg.max_ray_depth
     want = dict(traverse=2 * depth * n_launch, traverse_shadow=depth * n_launch,
+                traverse_compact=2 * depth * n_launch, traverse_nee=0,
                 bilinear_fetch=(depth + 2) * n_launch, point_fetch=0)
     for k, v in want.items():
         if launches[k] != v:
@@ -331,17 +337,22 @@ def phase_shadow_path(main_steady_ms):
           f"samples_per_launch={MAIN_SPL}, steady per_spp_ms {steady_ms:.3f} "
           f"(main path in this run: {main_steady_ms:.3f}), launches "
           f"{launches}", flush=True)
-    shadow = [c for c in rec_b1.calls if c[1].get("any_hit")]
-    if len(shadow) != depth:
-        fail("shadow path: the shadow dispatches were not recorded")
-    b1s = []
-    for d, call in enumerate(shadow):
-        c = b1_shadow_check(call, chunk=w * h, max_chunks=B1_TWIN_SAMPLES)
-        b1s.append(c)
-        print(f"B1 shadow depth {d}: {json.dumps(c)}", flush=True)
+    # the last launch's dispatches: per depth a closest-hit one without NEE,
+    # then a shadow-mode one
+    calls = rec_b1.calls
+    if len(calls) != 2 * depth or \
+            sum(bool(c[1].get("any_hit")) for c in calls) != depth:
+        fail("shadow path: the B1 dispatches were not recorded")
+    b1 = dict(closest=[], shadow=[])
+    for call in calls:
+        mode = "shadow" if call[1].get("any_hit") else "closest"
+        d = len(b1[mode])
+        c = b1_check(call, chunk=w * h, max_chunks=B1_TWIN_SAMPLES)
+        b1[mode].append(c)
+        print(f"B1 {mode} depth {d}: {json.dumps(c)}", flush=True)
         if not c["ok"]:
-            fail(f"B1's shadow dispatch at depth {d} disagrees with its twin")
-    del rec_b1, shadow
+            fail(f"B1's {mode} dispatch at depth {d} disagrees with its twin")
+    del rec_b1, calls
     (tab, fx, fy, res), _ = rec_bl.calls[-1]
     b3 = b3_check(tab, fx, fy, res)
     print(f"B3 at the shadow path's wavefront: {json.dumps(b3)}", flush=True)
@@ -367,8 +378,8 @@ def phase_shadow_path(main_steady_ms):
           f"RMSE {card_cpu:.3e}", flush=True)
     if not explicit < 1e-4 or not card_cpu < 1e-4:
         fail("the shadow path's small renders disagree")
-    return dict(steady_per_spp_ms=steady_ms, launches=launches, b1_shadow=b1s,
-                b3=b3, explicit_vs_in_kernel_rmse=explicit,
+    return dict(steady_per_spp_ms=steady_ms, launches=launches,
+                b1_closest=b1["closest"], b1_shadow=b1["shadow"], b3=b3, explicit_vs_in_kernel_rmse=explicit,
                 card_vs_cpu_rmse=card_cpu)
 
 
@@ -446,13 +457,64 @@ def _ray_slice(x, n, lo, hi):
     return x
 
 
+def _b1_differs(a, b, lo=0):
+    """Per-ray mask over ``b``'s rays: where rays lo: of result ``a`` and
+    result ``b`` differ in any output both return (inf equals inf)."""
+    hi = lo + b.distance.shape[0]
+    bad = a.distance[lo:hi] != b.distance
+    for f in ("iters", "color_word", "active", "nee_visible"):
+        x, y = getattr(a, f), getattr(b, f)
+        if x is not None and y is not None:
+            bad |= x[lo:hi] != y
+    if a.ipos is not None and b.ipos is not None:
+        for x, y in zip((*a.ipos, *a.normal), (*b.ipos, *b.normal)):
+            bad |= x[lo:hi] != y
+    return bad
+
+
+class AdvanceTally:
+    """Inside a ``with`` block, sums the advances of every march the twin
+    runs (``dda_kernel._run``), in call order: within one twin call the
+    primaries' march comes first, then the NEE shadow rays' if any; and
+    keeps the most advances any one ray took."""
+
+    def __enter__(self):
+        from voxelrt_torch.ops import dda_kernel as dk
+
+        self.dk, self.orig, self.sums, self.most = dk, dk._run, [], 0
+
+        def run(*a, **k):
+            st = self.orig(*a, **k)
+            self.sums.append(int(st["adv"].sum().item()))
+            if st["adv"].numel():
+                self.most = max(self.most, int(st["adv"].max().item()))
+            return st
+
+        dk._run = run
+        return self
+
+    def __exit__(self, *exc):
+        self.dk._run = self.orig
+
+
 def b1_check(rec_args, chunk, reps=3, max_chunks=None):
-    """B1 kernel vs twin on one recorded main-path dispatch, with the
-    test_dda_pallas bar. The kernel runs on the whole dispatch; the twin in
-    runs of ``chunk`` rays (one sample's wavefront each), which bounds its
-    temporaries, over the first ``max_chunks`` of them (None: all). Shares
-    are of the rays compared; ``plain_ms`` is the twin's time scaled to the
-    whole dispatch. Returns a dict of figures."""
+    """B1 kernel vs twin on one recorded dispatch (closest hit, with or
+    without in-kernel NEE, or shadow mode), all outputs bit-equal.
+
+    The kernel runs the whole dispatch once under
+    ``torch.cuda.set_sync_debug_mode("error")``, so that a host
+    synchronisation in the wrapper fails the run; once with the sun-open
+    early-out off (``sun_mode='off'``, or ``use_sun_open=False`` in shadow
+    mode), which must change no output. The twin runs in runs of ``chunk``
+    rays (one sample's wavefront each), which bounds its temporaries, over
+    the first ``max_chunks`` of them (None: all); on each the kernel runs
+    again on that chunk alone (another list order, the same outputs and
+    counts), and on the first the twin runs with the early-out off too.
+    ``plain_ms`` is the twin's time scaled to the whole dispatch. The bound
+    counts the primaries' advances (the kernel's own ``iters`` in
+    closest-hit mode, the twin's on the compared chunks scaled to the
+    dispatch in shadow mode) and the NEE shadow rays' (the twin's, scaled).
+    Returns a dict of figures."""
     import torch
 
     from voxelrt_torch.ops import dda_kernel as dk
@@ -460,113 +522,78 @@ def b1_check(rec_args, chunk, reps=3, max_chunks=None):
     args, kw = rec_args
     tables, rest = args[0], args[1:]
     n = rest[0].x.shape[0]
-    k = dk.raytrace(*args, **kw)
+    shadow = bool(kw.get("any_hit"))
+    sun_off = dict(kw, **(dict(use_sun_open=False) if shadow
+                          else dict(sun_mode="off")))
     torch.cuda.synchronize()
-    tot = dict(mism=0, col_bad=0, vis_agree=0, exact=0, hits=0)
-    max_err = 0.0
-    plain_ms = 0.0
-    n_cmp = n if max_chunks is None else min(n, chunk * max_chunks)
-    for lo in range(0, n_cmp, chunk):
-        hi = min(n_cmp, lo + chunk)
-        sa = [_ray_slice(a, n, lo, hi) for a in rest]
-        skw = {name: _ray_slice(v, n, lo, hi) for name, v in kw.items()}
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        p = dk.raytrace_plain(tables, *sa, **skw)
-        end.record()
-        torch.cuda.synchronize()
-        plain_ms += start.elapsed_time(end)
-        kd = k.distance[lo:hi]
-        hk, hp = torch.isfinite(kd), torch.isfinite(p.distance)
-        same_cell = torch.stack([a[lo:hi] == b
-                                 for a, b in zip(k.ipos, p.ipos)]).all(0)
-        same_n = torch.stack([a[lo:hi] == b
-                              for a, b in zip(k.normal, p.normal)]).all(0)
-        both = hk & hp
-        dd = torch.where(both, (kd - p.distance).abs(), torch.zeros_like(kd))
-        mism = (hk != hp) | (both & (dd > 1e-2)) | (both & same_cell & ~same_n)
-        tot["mism"] += int(mism.sum().item())
-        tot["col_bad"] += int((both & same_cell & (k.color_word[lo:hi]
-                                                   != p.color_word)).sum().item())
-        if k.nee_visible is not None:
-            tot["vis_agree"] += int((k.nee_visible[lo:hi]
-                                     == p.nee_visible).sum().item())
-        exact = ((kd == p.distance) | (~hk & ~hp)) & same_cell & same_n
-        tot["exact"] += int(exact.sum().item())
-        tot["hits"] += int(hk.sum().item())
-        max_err = max(max_err, dd.max().item())
-        del p
-    vis_agree = (tot["vis_agree"] / n_cmp if k.nee_visible is not None
-                 else 1.0)
-    out = dict(n=n, compared=n_cmp, alive=int((kw["alive"] != 0).sum().item()),
-               mismatch_frac=tot["mism"] / n_cmp,
-               color_mismatch=tot["col_bad"],
-               nee_visible_agree=vis_agree, exact_frac=tot["exact"] / n_cmp,
-               max_abs_err=max_err, hits=tot["hits"],
-               sum_iters=int(k.iters.to(torch.int64).sum().item()))
-    out["ok"] = (out["mismatch_frac"] <= 0.01 and tot["col_bad"] == 0
-                 and vis_agree >= 0.99)
-    out["ms"] = cuda_ms(lambda: dk.raytrace(*args, **kw), reps)
-    out["plain_ms"] = plain_ms * n / n_cmp
-    out["bound_ms"], out["bound_by"] = b1_bound_ms(args, kw, out["alive"],
-                                                   out["sum_iters"])
-    return out
-
-
-def b1_shadow_check(rec_args, chunk, reps=3, max_chunks=None):
-    """B1's shadow mode vs its twin on one recorded shadow dispatch: the
-    distances (and so the verdicts) must be bit-equal on the rays compared.
-    The operation count of the bound takes the advances of the closest-hit
-    kernel on the same rays, which runs the same march."""
-    import torch
-
-    from voxelrt_torch.ops import dda_kernel as dk
-
-    args, kw = rec_args
-    tables, rest = args[0], args[1:]
-    n = rest[0].x.shape[0]
-    k = dk.raytrace(*args, **kw)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        k = dk.raytrace(*args, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    k_off = dk.raytrace(*args, **sun_off)
     torch.cuda.synchronize()
+    counts = k.counts.tolist()
+    mask_alive = int((kw["alive"] != 0).sum().item())
+    off_bad = int(_b1_differs(k_off, k).sum().item())
     n_cmp = n if max_chunks is None else min(n, chunk * max_chunks)
-    bad = 0
+    tot = dict(mism=0, chunk_bad=0, twin_off_bad=0, prim_adv=0, nee_adv=0,
+               most_adv=0)
     max_err = 0.0
     plain_ms = 0.0
     for lo in range(0, n_cmp, chunk):
         hi = min(n_cmp, lo + chunk)
         sa = [_ray_slice(a, n, lo, hi) for a in rest]
         skw = {name: _ray_slice(v, n, lo, hi) for name, v in kw.items()}
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        p = dk.raytrace_plain(tables, *sa, **skw)
-        end.record()
-        torch.cuda.synchronize()
+        with AdvanceTally() as adv:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            p = dk.raytrace_plain(tables, *sa, **skw)
+            end.record()
+            torch.cuda.synchronize()
         plain_ms += start.elapsed_time(end)
+        tot["prim_adv"] += adv.sums[0]
+        tot["nee_adv"] += sum(adv.sums[1:])
+        tot["most_adv"] = max(tot["most_adv"], adv.most)
+        tot["mism"] += int(_b1_differs(k, p, lo).sum().item())
         kd = k.distance[lo:hi]
-        differ = kd != p.distance
-        bad += int(differ.sum().item())
-        # inf where one side blocks and the other does not
+        both = torch.isfinite(kd) & torch.isfinite(p.distance)
         max_err = max(max_err, torch.where(
-            differ, (kd - p.distance).abs(),
-            torch.zeros_like(kd)).max().item())
-    closest_kw = dict(kw, any_hit=False, fetch_colors=True)
-    sum_iters = int(dk.raytrace(*args, **closest_kw).iters.to(
-        torch.int64).sum().item())
-    alive = int((kw["alive"] != 0).sum().item())
-    out = dict(n=n, compared=n_cmp, alive=alive,
-               blocked=int(torch.isfinite(k.distance).sum().item()),
-               mismatched=bad, max_abs_err=max_err,
-               sum_iters=sum_iters, ok=bad == 0)
+            both, (kd - p.distance).abs(), torch.zeros_like(kd)).max().item())
+        kc = dk.raytrace(tables, *sa, **skw)
+        tot["chunk_bad"] += int(_b1_differs(kc, p).sum().item()) + int(
+            not torch.equal(kc.counts, p.counts))
+        if lo == 0:
+            po = dk.raytrace_plain(
+                tables, *sa, **{name: _ray_slice(v, n, lo, hi)
+                                for name, v in sun_off.items()})
+            tot["twin_off_bad"] += int(_b1_differs(k_off, po, lo).sum().item())
+        del p, kc
+    scale = n / n_cmp
+    prim_adv = (tot["prim_adv"] * scale if shadow
+                else int(k.iters.to(torch.int64).sum().item()))
+    nee_adv = tot["nee_adv"] * scale
+    out = dict(n=n, compared=n_cmp, alive=counts[0],
+               nee_marched=counts[1], nee_settled=counts[2],
+               mismatched=tot["mism"], mismatch_frac=tot["mism"] / n_cmp,
+               chunk_mismatched=tot["chunk_bad"],
+               sun_off_mismatched=off_bad + tot["twin_off_bad"],
+               max_abs_err=max_err,
+               hits=int(torch.isfinite(k.distance).sum().item()),
+               primary_advances=prim_adv, nee_advances=nee_adv,
+               most_advances_of_a_ray=tot["most_adv"])
+    out["ok"] = (tot["mism"] == 0 and tot["chunk_bad"] == 0
+                 and out["sun_off_mismatched"] == 0 and counts[0] == mask_alive)
     out["ms"] = cuda_ms(lambda: dk.raytrace(*args, **kw), reps)
-    out["closest_hit_ms"] = cuda_ms(lambda: dk.raytrace(*args, **closest_kw),
-                                    reps)
-    out["plain_ms"] = plain_ms * n / n_cmp
-    out["bound_ms"], out["bound_by"] = b1_bound_ms(args, kw, alive, sum_iters)
+    out["sun_off_ms"] = cuda_ms(lambda: dk.raytrace(*args, **sun_off), reps)
+    out["plain_ms"] = plain_ms * scale
+    out["bound_ms"], out["bound_by"] = b1_bound_ms(args, kw, counts[0],
+                                                   prim_adv + nee_adv)
     return out
 
 
-def b1_bound_ms(args, kw, n_alive, sum_iters):
+def b1_bound_ms(args, kw, n_alive, advances):
     """B1's least time for one dispatch, from this dispatch's data.
 
     Bytes: the alive mask for every ray; origin, direction, a per-ray tmax
@@ -574,9 +601,10 @@ def b1_bound_ms(args, kw, n_alive, sum_iters):
     ray reads nothing more; tmin and the NEE scalars once; the tables once;
     every output (distance, ipos, normal, iters, colour, active, and
     nee_visible with NEE; in shadow mode the distance alone) once for every
-    ray. Operations: ~60 float32
+    ray. The lists and the shadow rays the passes hand each other are the
+    kernel's own traffic and are not counted. Operations: ~60 float32
     operations per traversal advance (csrc/dda.cu march step), times the
-    advances that this dispatch's primaries took."""
+    ``advances`` this dispatch's rays took, the NEE shadow rays' included."""
     from voxelrt_torch.ops.dda_kernel import DeviceTables
 
     tables, n = args[0], args[1].x.shape[0]
@@ -593,7 +621,7 @@ def b1_bound_ms(args, kw, n_alive, sum_iters):
               + sum(getattr(tables, f).numel() * 4
                     for f in DeviceTables._fields[:-1]))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 60.0 * sum_iters / FP32_OPS_PER_S * 1e3
+    t_ops = 60.0 * advances / FP32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -625,8 +653,14 @@ def profile_launch(r, launch_wall_ms, moving=False):
                             moving, scale)
         torch.cuda.synchronize()
         traced_wall_ms = (time.perf_counter() - t0) * 1e3
-    groups = {"traverse_kernel": 0.0, "point_kernel": 0.0,
-              "bilinear_kernel": 0.0, "taps_kernel": 0.0, "other": 0.0}
+    # the port's kernels by the names of their __global__ functions; B1's
+    # three passes count as one group
+    names = {"traverse_kernel": ("compact_kernel", "closest_kernel",
+                                 "anyhit_kernel", "nee_shadow_kernel"),
+             "point_kernel": ("point_kernel",),
+             "bilinear_kernel": ("bilinear_kernel",),
+             "taps_kernel": ("taps_kernel",)}
+    groups = dict.fromkeys([*names, "other"], 0.0)
     n_kernels = 0
     top = []
     # Only the device's own events: a runtime entry on the host side would
@@ -636,7 +670,8 @@ def profile_launch(r, launch_wall_ms, moving=False):
             continue
         t = e.self_device_time_total / 1e3
         n_kernels += e.count
-        g = next((k for k in groups if k in e.key), "other")
+        g = next((k for k, frags in names.items()
+                  if any(f in e.key for f in frags)), "other")
         groups[g] += t
         top.append((t, e.count, e.key[:80]))
     dev_ms = sum(groups.values())
@@ -878,7 +913,8 @@ def main():
         fail("image is not finite or has the wrong shape")
     if float(img.std()) <= 1e-4:
         fail("image is constant")
-    for kname in ("traverse", "point_fetch", "bilinear_fetch"):
+    for kname in ("traverse", "traverse_compact", "traverse_nee",
+                  "point_fetch", "bilinear_fetch"):
         if launches[kname] <= 0:
             fail(f"kernel {kname} was not launched on the main path")
     print(f"image: mean {img.mean():.4f} std {img.std():.4f}", flush=True)
@@ -887,7 +923,8 @@ def main():
     # The last launch's four depths, 14.7M rays each (16 samples of
     # 921,600): depth 0 is the primary wavefront with in-kernel NEE, depths
     # 1-3 the bounce wavefronts; the twin runs one sample at a time, on
-    # B1_TWIN_SAMPLES of the 16.
+    # B1_TWIN_SAMPLES of the 16. Every output must be bit-equal, with the
+    # config's sun_mode and with 'off'.
     b1 = []
     for depth, call in enumerate(rec_b1.calls):
         c = b1_check(call, chunk=w * h, max_chunks=B1_TWIN_SAMPLES)
@@ -907,6 +944,8 @@ def main():
     print(f"steady state: per_spp_ms {steady_ms:.3f} over {MAIN_SPP} "
           f"more spp; one launch profiled (idle share against the "
           f"unprofiled launch): {json.dumps(prof)}", flush=True)
+    if prof["by_group_ms"]["traverse_kernel"] <= 0.0:
+        fail("the profiled launch shows no B1 device time")
 
     # -- 7. B2 / B3 kernel vs twin on main-path inputs -------------------------
     (words, wid), _ = rec_pt.calls[-1]
@@ -1084,12 +1123,13 @@ def main():
     if "jax" in sys.modules or "voxelrt" in sys.modules:
         fail("the port imported jax or the voxelrt package")
 
+    b1_all = b1 + shadow["b1_closest"] + shadow["b1_shadow"]
     kernels = [
         dict(name="B1 traverse", route="cuda", source="voxelrt_torch/csrc/dda.cu",
              replaces="voxelrt/ops/dda_pallas.py:194",
              launches=launches["traverse"],
-             max_abs_err=max(c["max_abs_err"] for c in b1),
-             mismatch_frac=max(c["mismatch_frac"] for c in b1),
+             max_abs_err=max(c["max_abs_err"] for c in b1_all),
+             mismatch_frac=max(c["mismatch_frac"] for c in b1_all),
              ms=b1[0]["ms"], plain_ms=b1[0]["plain_ms"],
              bound_ms=b1[0]["bound_ms"], bound_by=b1[0]["bound_by"],
              library_ms=None,
@@ -1097,17 +1137,38 @@ def main():
              depth_ms=[c["ms"] for c in b1],
              depth_plain_ms=[c["plain_ms"] for c in b1],
              depth_bound_ms=[c["bound_ms"] for c in b1],
+             depth_bound_by=[c["bound_by"] for c in b1],
+             depth_alive=[c["alive"] for c in b1],
+             depth_nee_marched=[c["nee_marched"] for c in b1],
+             depth_nee_settled=[c["nee_settled"] for c in b1],
+             sun_off_ms=[c["sun_off_ms"] for c in b1],
+             pass_launches={k: launches[k] for k in (
+                 "traverse_compact", "traverse", "traverse_nee")},
              shadow_launches=shadow["launches"]["traverse_shadow"],
+             shadow_pass_launches={k: shadow["launches"][k] for k in (
+                 "traverse_compact", "traverse", "traverse_shadow",
+                 "traverse_nee")},
              shadow_mismatched=sum(c["mismatched"]
                                    for c in shadow["b1_shadow"]),
              shadow_max_abs_err=max(c["max_abs_err"]
                                     for c in shadow["b1_shadow"]),
              shadow_ms=[c["ms"] for c in shadow["b1_shadow"]],
-             shadow_closest_hit_ms=[c["closest_hit_ms"]
-                                    for c in shadow["b1_shadow"]],
+             shadow_sun_off_ms=[c["sun_off_ms"] for c in shadow["b1_shadow"]],
+             shadow_alive=[c["alive"] for c in shadow["b1_shadow"]],
              shadow_plain_ms=[c["plain_ms"] for c in shadow["b1_shadow"]],
              shadow_bound_ms=[c["bound_ms"] for c in shadow["b1_shadow"]],
-             shadow_bound_by=[c["bound_by"] for c in shadow["b1_shadow"]]),
+             shadow_bound_by=[c["bound_by"] for c in shadow["b1_shadow"]],
+             shadow_path_closest_mismatched=sum(
+                 c["mismatched"] for c in shadow["b1_closest"]),
+             shadow_path_closest_ms=[c["ms"] for c in shadow["b1_closest"]],
+             shadow_path_closest_alive=[c["alive"]
+                                        for c in shadow["b1_closest"]],
+             shadow_path_closest_plain_ms=[c["plain_ms"]
+                                           for c in shadow["b1_closest"]],
+             shadow_path_closest_bound_ms=[c["bound_ms"]
+                                           for c in shadow["b1_closest"]],
+             shadow_path_closest_bound_by=[c["bound_by"]
+                                           for c in shadow["b1_closest"]]),
         dict(name="B2 point_fetch_words", route="cuda",
              source="voxelrt_torch/csrc/texfetch.cu",
              replaces="voxelrt/ops/texfetch.py:156",

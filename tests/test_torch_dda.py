@@ -142,7 +142,12 @@ def test_b1_twin_matches_pallas_nee_and_alive():
 
 
 @pytest.mark.cuda
-def test_b1_kernel_matches_twin_on_card():
+@pytest.mark.parametrize("sun_mode,src_open", [("half", True), ("off", False),
+                                               ("all", False)])
+@pytest.mark.parametrize("share", [0.07, 0.6, 1.0])
+def test_b1_kernel_matches_twin_on_card(share, sun_mode, src_open):
+    """Every output and the pass counts bit-equal, at sparse and full alive
+    masks, with and without the sun-open early-outs."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: B1 is a CUDA kernel")
     dev = torch.device("cuda")
@@ -153,14 +158,17 @@ def test_b1_kernel_matches_twin_on_card():
     ov, dv = (V3(*(c.to(dev) for c in _tv3(a))) for a in (o, d))
     u = torch.from_numpy(rng.random((n, 2)).astype(np.float32)).to(dev)
     alt = torch.full((n,), float("inf"), device=dev)
-    alive = torch.from_numpy(rng.random(n) < 0.8).to(dev)
+    alive = torch.from_numpy(rng.random(n) < share).to(dev)
     nee = dk.nee_params((u[:, 0].contiguous(), u[:, 1].contiguous()), alt, L,
                         [0.0, 0.0, 1.0], [0.0, 1.0, 0.0], CONE_COS, 16e-4,
                         1e-4, dev)
-    for kw in ({}, dict(nee=nee, alive=alive)):
+    for kw in ({}, dict(alive=alive),
+               dict(nee=nee, alive=alive, sun_mode=sun_mode,
+                    nee_src_open=src_open)):
         a = dk.raytrace(tt, ov, dv, 1e-6, float("inf"), **kw)
         b = dk.raytrace_plain(tt, ov, dv, 1e-6, float("inf"), **kw)
-        for f in ("distance", "iters", "color_word", "active", "nee_visible"):
+        for f in ("distance", "iters", "color_word", "active", "nee_visible",
+                  "counts"):
             x, y = getattr(a, f), getattr(b, f)
             if x is not None:
                 assert torch.equal(x, y), f

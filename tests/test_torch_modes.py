@@ -169,7 +169,9 @@ def test_unported_modes_still_raise(both, over):
 
 
 @pytest.mark.cuda
-def test_b1_shadow_kernel_matches_twin_on_card():
+@pytest.mark.parametrize("use_sun_open", [False, True])
+@pytest.mark.parametrize("share", [0.07, 0.6, 1.0])
+def test_b1_shadow_kernel_matches_twin_on_card(share, use_sun_open):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: B1 is a CUDA kernel")
     dev = torch.device("cuda")
@@ -177,8 +179,10 @@ def test_b1_shadow_kernel_matches_twin_on_card():
     tt = dk.DeviceTables(*(x.to(dev) for x in tt[:-1]), tt.grid_res)
     rng, o, d = _rays(5, 50_000)
     ov, dv = (V3(*(c.to(dev) for c in _tv3(a))) for a in (o, d))
-    alive = torch.from_numpy(rng.random(o.shape[0]) < 0.8).to(dev)
-    kw = dict(alive=alive, any_hit=True, fetch_colors=False)
+    alive = torch.from_numpy(rng.random(o.shape[0]) < share).to(dev)
+    kw = dict(alive=alive, any_hit=True, fetch_colors=False,
+              use_sun_open=use_sun_open)
     a = dk.raytrace(tt, ov, dv, 1e-6, float("inf"), **kw)
     b = dk.raytrace_plain(tt, ov, dv, 1e-6, float("inf"), **kw)
     assert torch.equal(a.distance, b.distance)
+    assert torch.equal(a.counts, b.counts)

@@ -83,7 +83,7 @@ class HeadlessRenderer:
                 float(sc._light_cone_cos_theta_max))
         # The 'auto' scheduling knobs resolve as in the JAX package
         # (headless.py:129-160) so configs stay one to one; the port's
-        # kernel does not read them.
+        # kernel reads dda_nee_src_open and ignores dda_march_unroll.
         open_frac = 0.0
         if self.cfg.use_directional_light:
             w = np.asarray(tables.sun_open_words).astype(np.uint32)

@@ -8,10 +8,11 @@ and on the CPU through their plain PyTorch twins. Fields that only choose a
 backend or schedule TPU work are kept for the one-to-one mapping and are
 IGNORED by the port: ``use_pallas_dda``, ``pallas_interpret``,
 ``dda_block_rows``, ``dda_queue_depth``, ``dda_refill_every``,
-``dda_march_unroll``, ``dda_fetch_cadence``, ``dda_sun_mode``,
-``dda_resolve_steps``, ``dda_nee_src_open``, ``sky_route_sort`` and
-``sky_sort_sliced``. The JAX package documents each of them as leaving
-per-ray results unchanged.
+``dda_march_unroll``, ``dda_fetch_cadence``, ``dda_resolve_steps``,
+``sky_route_sort`` and ``sky_sort_sliced``. The JAX package documents each
+of them as leaving per-ray results unchanged. The port's traversal kernel
+reads the two sun-open knobs, ``dda_sun_mode`` and ``dda_nee_src_open``,
+which leave per-ray results unchanged as well.
 
 The reference scatters configuration across three tiers: module constants
 (``USE_RESTIR_PT``, ``MAX_RAY_DEPTH``, ``RADIANCE_CLAMP`` at
@@ -143,7 +144,10 @@ class RenderConfig:
     # segments (halves the dual-gather cost; a certified shadow ray
     # retires ≤1 advance later — outputs identical), 'off' disables the
     # early-out. Pure scheduling knob; per-ray results are unchanged. The
-    # port accepts and ignores it (its kernel has no sun-open early-out).
+    # port's kernel checks every advance under both 'all' and 'half': the
+    # 'half' cadence halves a dual-table gather cost of the TPU kernel that
+    # a per-thread table read on the card does not have, and the outputs
+    # are identical.
     dda_sun_mode: str = "half"  # 'all' | 'half' | 'off'
 
     # In-cell DDA unroll length per fetch round (9 = the longest monotone
@@ -162,7 +166,7 @@ class RenderConfig:
     # 'visible'; equality test in tests/test_dda_pallas.py). 'auto'
     # resolves by the scene's sun-open cell fraction at setup (open scenes
     # on, enclosed interiors off). The port resolves 'auto' the same way and
-    # its kernel ignores the result.
+    # its kernel applies the result.
     dda_nee_src_open: str = "auto"  # 'auto' | 'on' | 'off'
 
     # Escape-sky fetch estimator: 'stochastic' picks ONE bilinear corner

@@ -1,4 +1,4 @@
-// Closest-hit voxel traversal with in-kernel sun-cone NEE (kernel B1).
+// Closest-hit voxel traversal with sun-cone NEE (kernel B1).
 //
 // Replaces the TPU kernel voxelrt/ops/dda_pallas.py:_traverse_kernel (via
 // raytrace_pallas): rays in grid space [0, res)^3, an AABB clip, an
@@ -9,9 +9,8 @@
 // face normal, and the hit colour word from the morton-rank compressed
 // colour table (direct or palette mode). In NEE mode a retired primary with
 // a surface (a voxel hit, or the caller's floor crossing alt_t when closer)
-// becomes its sun-cone shadow ray in the same thread, and the kernel reports
-// whether that ray escapes (nee_visible). Dead rays (alive == 0) return the
-// canonical miss at once.
+// becomes its sun-cone shadow ray, and the kernel reports whether that ray
+// escapes (nee_visible).
 //
 // Shadow mode (template parameter SHADOW; the TPU kernel's any_hit with
 // fetch_colors off, used by the explicit sun-shadow dispatch) runs the same
@@ -23,26 +22,44 @@
 // moves ~60-100 bytes of inputs and outputs, but it runs a data-dependent
 // loop of tens to hundreds of dependent steps, each a few table reads (L1/L2
 // hits: the tables of a 128^3 scene total well under 2 MB) and ~100 integer
-// and float operations. Threads of one warp finish after different numbers
-// of steps, so the limit is issue slots lost to divergence and the latency
-// of the dependent table reads.
+// and float operations. A warp runs as long as its slowest lane, so the
+// limit is issue slots lost to lanes that have nothing (left) to do and the
+// latency of the dependent table reads.
 //
-// What the design does about it: one thread per ray, a per-thread loop with
-// divergent exits, which is the natural GPU form. The TPU kernel's lock-step
-// (rows, 128) blocks, per-slot ray queues with refill rounds, roll-trick
-// gathers, slab scans, march unrolling and fetch deferral are TPU scheduling
-// devices and are not carried over: each thread takes the JAX kernel's
-// per-ray sequence of steps directly, which the JAX package's own tests show
-// to be bitwise identical to its queued form. The per-step state is kept in
-// the TPU kernel's packed word (position + normal) so that out-of-range
-// march targets alias exactly as they do there. The sun-open certificate
-// early-out (a pure scheduling shortcut with identical verdicts) is left
-// out of this first kernel. Tables are read through the read-only cache.
+// What the design does about it. One thread per ray, a per-thread loop with
+// divergent exits, each thread taking the JAX kernel's per-ray sequence of
+// steps (which the JAX package's own tests show bitwise identical to its
+// queued TPU form). Three launches per dispatch keep the warps full:
+//   1. compact_kernel builds the list of alive rays (one ballot and popc per
+//      warp, a block-wide prefix in shared memory, one atomicAdd per block
+//      into a device counter) and writes the canonical miss for every dead
+//      lane (dda_pallas.py:1148-1156). The count stays on the device.
+//   2. closest_kernel / anyhit_kernel trace the alive list only (threads
+//      past the device count exit) and scatter each ray's outputs to its
+//      original index. In NEE mode a converted primary writes its shadow
+//      ray (origin, direction, index: 28 B) into scratch and appends it to
+//      a second list with one atomicAdd per warp, instead of marching it in
+//      the same thread while its warp's other lanes wait.
+//   3. nee_shadow_kernel traces that list densely and writes nee_visible.
+// The sun-open certificate (sun_open_words, one bit per 4^3 cell: the
+// whole sun cone escapes the grid from anywhere in the cell) retires shadow
+// rays early with the JAX kernel's verdicts: at every advance, before the
+// occupancy test, a live ray standing in a certified cell retires as a
+// miss (dda_pallas.py:482-496; a second word read at the LOD2 word's
+// index), and with nee_src_open a converted shadow ray whose clip misses
+// the grid or whose entry cell is certified is visible without a march
+// (dda_pallas.py:864-905). The TPU kernel's lock-step (rows, 128) blocks,
+// per-slot ray queues with refill rounds, roll-trick gathers, slab scans,
+// march unrolling and fetch deferral are TPU scheduling devices and are not
+// carried over. The per-step state is kept in the TPU kernel's packed word
+// (position + normal) so that out-of-range march targets alias exactly as
+// they do there. Tables are read through the read-only cache.
 //
 // Numerics: built with -fmad=false and written in the JAX kernel's operation
 // order, so results match the plain PyTorch twin
 // (voxelrt_torch/ops/dda_kernel.py) except where cosf/sinf/sqrtf differ in
-// the last bit from the twin's device functions.
+// the last bit from the twin's device functions. Per-ray outputs do not
+// depend on the order of either list.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -53,6 +70,8 @@ namespace {
 constexpr float BIG = 3.0e38f;
 constexpr float EPS = 1e-6f;
 constexpr int RESOLVE_STEPS = 9;
+constexpr int COMPACT_THREADS = 256;
+constexpr int TRACE_THREADS = 128;
 
 struct Tables {
   const int* lod2;
@@ -65,10 +84,10 @@ struct Tables {
   const int* mhi;
   const int* colors;
   const int* palette;  // null in direct mode
+  const int* sun;      // sun-open bits, LOD2 layout
   int res;
   int max_advances;
 };
-
 struct Ray {
   float ox, oy, oz, dx, dy, dz;
   float inv_x, inv_y, inv_z, sx, sy, sz, far;
@@ -192,8 +211,9 @@ __device__ __forceinline__ void box_exit(const Ray& r, float t, float lox,
 
 // One step of the per-ray sequence: a miss test, then either a whole-cell
 // resolve (occupied 4^3 cell) or an empty-space march advance.
+// ``sun``: a live ray standing in a sun-open cell retires as a miss first.
 template <bool SHADOW>
-__device__ void step(const Tables& T, const Ray& r, State& s) {
+__device__ void step(const Tables& T, const Ray& r, State& s, bool sun) {
   const int res = T.res;
   const int r2 = res >> 2;
   const int r3 = res >> 3;
@@ -211,6 +231,11 @@ __device__ void step(const Tables& T, const Ray& r, State& s) {
   int cell = ((pz >> 2) * r2 + (py >> 2)) * r2 + (px >> 2);
   int cw = cell >> 5;
   int cb = cell & 31;
+  if (sun && ((ld(T.sun, cw) >> cb) & 1) != 0) {
+    s.t = BIG;
+    s.active = 0;
+    return;
+  }
   int w2 = ld(T.lod2, cw);
   bool occ2 = ((w2 >> cb) & 1) != 0;
   float o_t;
@@ -332,8 +357,9 @@ __device__ void step(const Tables& T, const Ray& r, State& s) {
 }
 
 template <bool SHADOW>
-__device__ __forceinline__ void run(const Tables& T, const Ray& r, State& s) {
-  while (s.active) step<SHADOW>(T, r, s);
+__device__ __forceinline__ void run(const Tables& T, const Ray& r, State& s,
+                                    bool sun) {
+  while (s.active) step<SHADOW>(T, r, s, sun);
 }
 
 __device__ __forceinline__ int part1by2(int v) {
@@ -362,127 +388,298 @@ __device__ int hit_color(const Tables& T, int px, int py, int pz) {
   return ld(T.colors, occ_rank * 64 + local);
 }
 
+struct Rays {
+  const float* ox;
+  const float* oy;
+  const float* oz;
+  const float* dx;
+  const float* dy;
+  const float* dz;
+  float tmin;
+  const float* tmax;
+};
+
+// Per-ray outputs; in shadow mode only t is set, without NEE vis is null.
+struct Outs {
+  float* t;
+  int* ix;
+  int* iy;
+  int* iz;
+  float* nx;
+  float* ny;
+  float* nz;
+  int* iters;
+  int* color;
+  int* active;
+  int* vis;
+};
+
+// In-kernel NEE inputs, and the second list the converted shadow rays go
+// to: rays holds 6 rows of n floats (origin, direction), idx their
+// original indices.
+struct Nee {
+  const float* u0;
+  const float* u1;
+  const float* alt;
+  const float* scal;  // L, X, Y, cone_cos, eps_grid, shadow_tmin
+  float* rays;
+  int* idx;
+  long long n;
+};
+
+// counts[0]: alive rays, counts[1]: NEE shadow rays listed for the second
+// pass, counts[2]: NEE shadow rays settled at conversion.
+
+// Pass 1: the alive list, and the canonical miss for every dead lane.
 template <bool SHADOW>
-__global__ void traverse_kernel(
-    Tables T, const float* __restrict__ ox, const float* __restrict__ oy,
-    const float* __restrict__ oz, const float* __restrict__ dx,
-    const float* __restrict__ dy, const float* __restrict__ dz,
-    float tmin, const float* __restrict__ tmax,
-    const int* __restrict__ alive, const float* __restrict__ u0,
-    const float* __restrict__ u1, const float* __restrict__ alt,
-    const float* __restrict__ nee, float* __restrict__ out_t,
-    int* __restrict__ out_ix, int* __restrict__ out_iy,
-    int* __restrict__ out_iz, float* __restrict__ out_nx,
-    float* __restrict__ out_ny, float* __restrict__ out_nz,
-    int* __restrict__ out_iters, int* __restrict__ out_color,
-    int* __restrict__ out_active, int* __restrict__ out_vis, long long n) {
-  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  if (alive != nullptr && alive[i] == 0) {
-    // canonical miss (dda_pallas.py:1148-1156)
-    out_t[i] = INFINITY;
-    if (SHADOW) return;
-    out_ix[i] = -1; out_iy[i] = -1; out_iz[i] = -1;
-    out_nx[i] = 0.0f; out_ny[i] = 0.0f; out_nz[i] = 0.0f;
-    out_iters[i] = 0; out_color[i] = 0; out_active[i] = 0;
-    if (out_vis != nullptr) out_vis[i] = 0;
-    return;
+__global__ void __launch_bounds__(COMPACT_THREADS) compact_kernel(
+    const bool* __restrict__ alive, long long n, int* __restrict__ list,
+    int* __restrict__ counts, Outs o) {
+  __shared__ int warp_base[COMPACT_THREADS / 32];
+  __shared__ int block_base;
+  const long long i = blockIdx.x * (long long)COMPACT_THREADS + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const bool in = i < n;
+  const bool a = in && (alive == nullptr || alive[i]);
+  const unsigned b = __ballot_sync(0xffffffffu, a);
+  if (lane == 0) warp_base[warp] = __popc(b);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int total = 0;
+    for (int w = 0; w < COMPACT_THREADS / 32; ++w) {
+      int c = warp_base[w];
+      warp_base[w] = total;
+      total += c;
+    }
+    block_base = total > 0 ? atomicAdd(counts, total) : 0;
   }
+  __syncthreads();
+  if (a) {
+    list[block_base + warp_base[warp] + __popc(b & ((1u << lane) - 1u))] =
+        (int)i;
+  } else if (in) {
+    // canonical miss (dda_pallas.py:1148-1156)
+    o.t[i] = INFINITY;
+    if (SHADOW) return;
+    o.ix[i] = -1; o.iy[i] = -1; o.iz[i] = -1;
+    o.nx[i] = 0.0f; o.ny[i] = 0.0f; o.nz[i] = 0.0f;
+    o.iters[i] = 0; o.color[i] = 0; o.active[i] = 0;
+    if (o.vis != nullptr) o.vis[i] = 0;
+  }
+}
+
+// Pass 2, shadow mode: the distance of each alive ray's any-hit march.
+__global__ void __launch_bounds__(TRACE_THREADS) anyhit_kernel(
+    Tables T, Rays R, const int* __restrict__ list,
+    const int* __restrict__ counts, float* __restrict__ out_t, int sun) {
+  const int j = blockIdx.x * TRACE_THREADS + threadIdx.x;
+  if (j >= counts[0]) return;
+  const int i = list[j];
   Ray r;
   State s;
-  init_ray<SHADOW>(T, ox[i], oy[i], oz[i], dx[i], dy[i], dz[i], tmin,
-                   tmax[i], r, s);
-  run<SHADOW>(T, r, s);
-  if (SHADOW) {
-    out_t[i] = s.t >= BIG ? INFINITY : s.t;
-    return;
-  }
-
-  int px, py, pz;
-  float hnx, hny, hnz;
-  unpack_word(s.word, px, py, pz, hnx, hny, hnz);
-  // normal flipped toward the ray (raytracer.py:151-153)
-  bool flip = ((r.dx * hnx + r.dy * hny) + r.dz * hnz) > 0.0f;
+  init_ray<true>(T, R.ox[i], R.oy[i], R.oz[i], R.dx[i], R.dy[i], R.dz[i],
+                 R.tmin, R.tmax[i], r, s);
+  run<true>(T, r, s, sun != 0);
   out_t[i] = s.t >= BIG ? INFINITY : s.t;
-  out_ix[i] = px; out_iy[i] = py; out_iz[i] = pz;
-  out_nx[i] = flip ? -hnx : hnx;
-  out_ny[i] = flip ? -hny : hny;
-  out_nz[i] = flip ? -hnz : hnz;
-  out_iters[i] = s.adv;
-  out_active[i] = s.active | s.exh;
-  out_color[i] = s.hit ? hit_color(T, px, py, pz) : 0;
+}
 
-  if (nee == nullptr) return;
-  // In-kernel NEE (dda_pallas.py nee_conv_data): the retired primary becomes
-  // its sun-cone shadow ray, from the voxel hit or the closer floor crossing.
-  float a = alt[i];
-  bool have_vox = s.hit != 0 && s.t < BIG;
-  bool use_alt = isfinite(a) && (a < (have_vox ? s.t : BIG));
-  bool surf = have_vox || use_alt;
-  float hnx_ = flip ? -hnx : hnx, hny_ = flip ? -hny : hny;
-  float hnz_ = flip ? -hnz : hnz;
-  float fny = r.dy > 0.0f ? -1.0f : 1.0f;
-  float snx = use_alt ? 0.0f : hnx_;
-  float sny = use_alt ? fny : hny_;
-  float snz = use_alt ? 0.0f : hnz_;
-  float st = use_alt ? a : s.t;
-  float epsg = nee[10];
-  float spx = (r.ox + r.dx * st) + snx * epsg;
-  float spy = (r.oy + r.dy * st) + sny * epsg;
-  float spz = (r.oz + r.dz * st) + snz * epsg;
-  float uu1 = u0[i], uu2 = u1[i];
-  float cos_t = (1.0f - uu1) + uu1 * nee[9];
-  float sin_t = sqrtf(fmaxf(1.0f - cos_t * cos_t, 0.0f));
-  float phi = 6.2831854820251465f * uu2;  // float32(2 * pi)
-  float cphi = cosf(phi) * sin_t;
-  float sphi = sinf(phi) * sin_t;
-  float ldx = (cphi * nee[3] + sphi * nee[6]) + cos_t * nee[0];
-  float ldy = (cphi * nee[4] + sphi * nee[7]) + cos_t * nee[1];
-  float ldz = (cphi * nee[5] + sphi * nee[8]) + cos_t * nee[2];
-  float ndl = (ldx * snx + ldy * sny) + ldz * snz;
-  int vis = 0;
-  if (surf && ndl > -1e-3f) {
-    Ray rs;
-    State ss;
-    init_ray<false>(T, spx, spy, spz, ldx, ldy, ldz, nee[11], BIG, rs, ss);
-    run<false>(T, rs, ss);
-    vis = (ss.hit == 0 && ss.exh == 0) ? 1 : 0;
+// Pass 2, closest hit: the alive rays' hits, and with NEE each converted
+// primary's shadow ray listed for pass 3 (or settled at conversion).
+template <bool NEE>
+__global__ void __launch_bounds__(TRACE_THREADS) closest_kernel(
+    Tables T, Rays R, const int* __restrict__ list,
+    int* __restrict__ counts, Outs o, Nee N, int sun, int src_open) {
+  const int j0 = blockIdx.x * TRACE_THREADS;
+  const int cnt = counts[0];
+  if (j0 >= cnt) return;  // the whole block: no lane reaches the ballots
+  const int j = j0 + threadIdx.x;
+  // NEE: 0 no shadow ray, 1 listed for pass 3, 2 settled visible here
+  int kind = 0;
+  int i = 0;
+  float spx = 0.0f, spy = 0.0f, spz = 0.0f;
+  float ldx = 0.0f, ldy = 0.0f, ldz = 0.0f;
+  if (j < cnt) {
+    i = list[j];
+    Ray r;
+    State s;
+    init_ray<false>(T, R.ox[i], R.oy[i], R.oz[i], R.dx[i], R.dy[i], R.dz[i],
+                    R.tmin, R.tmax[i], r, s);
+    run<false>(T, r, s, sun != 0);
+    int px, py, pz;
+    float hnx, hny, hnz;
+    unpack_word(s.word, px, py, pz, hnx, hny, hnz);
+    // normal flipped toward the ray (raytracer.py:151-153)
+    bool flip = ((r.dx * hnx + r.dy * hny) + r.dz * hnz) > 0.0f;
+    o.t[i] = s.t >= BIG ? INFINITY : s.t;
+    o.ix[i] = px; o.iy[i] = py; o.iz[i] = pz;
+    o.nx[i] = flip ? -hnx : hnx;
+    o.ny[i] = flip ? -hny : hny;
+    o.nz[i] = flip ? -hnz : hnz;
+    o.iters[i] = s.adv;
+    o.active[i] = s.active | s.exh;
+    o.color[i] = s.hit ? hit_color(T, px, py, pz) : 0;
+    if (NEE) {
+      // The retired primary becomes its sun-cone shadow ray, from the voxel
+      // hit or the closer floor crossing (dda_pallas.py nee_conv_data).
+      const float* nee = N.scal;
+      float a = N.alt[i];
+      bool have_vox = s.hit != 0 && s.t < BIG;
+      bool use_alt = isfinite(a) && (a < (have_vox ? s.t : BIG));
+      bool surf = have_vox || use_alt;
+      float hnx_ = flip ? -hnx : hnx, hny_ = flip ? -hny : hny;
+      float hnz_ = flip ? -hnz : hnz;
+      float fny = r.dy > 0.0f ? -1.0f : 1.0f;
+      float snx = use_alt ? 0.0f : hnx_;
+      float sny = use_alt ? fny : hny_;
+      float snz = use_alt ? 0.0f : hnz_;
+      float st = use_alt ? a : s.t;
+      float epsg = nee[10];
+      spx = (r.ox + r.dx * st) + snx * epsg;
+      spy = (r.oy + r.dy * st) + sny * epsg;
+      spz = (r.oz + r.dz * st) + snz * epsg;
+      float uu1 = N.u0[i], uu2 = N.u1[i];
+      float cos_t = (1.0f - uu1) + uu1 * nee[9];
+      float sin_t = sqrtf(fmaxf(1.0f - cos_t * cos_t, 0.0f));
+      float phi = 6.2831854820251465f * uu2;  // float32(2 * pi)
+      float cphi = cosf(phi) * sin_t;
+      float sphi = sinf(phi) * sin_t;
+      ldx = (cphi * nee[3] + sphi * nee[6]) + cos_t * nee[0];
+      ldy = (cphi * nee[4] + sphi * nee[7]) + cos_t * nee[1];
+      ldz = (cphi * nee[5] + sphi * nee[8]) + cos_t * nee[2];
+      float ndl = (ldx * snx + ldy * sny) + ldz * snz;
+      if (surf && ndl > -1e-3f) {
+        kind = 1;
+        if (src_open) {
+          // dda_pallas.py nee_instant: the clip misses the grid, or the
+          // entry cell is sun-open
+          Ray rs;
+          State ss;
+          init_ray<true>(T, spx, spy, spz, ldx, ldy, ldz, nee[11], BIG, rs,
+                         ss);
+          int qx, qy, qz;
+          float qnx, qny, qnz;
+          unpack_word(ss.word, qx, qy, qz, qnx, qny, qnz);
+          const int r2 = T.res >> 2;
+          int cell = ((qz >> 2) * r2 + (qy >> 2)) * r2 + (qx >> 2);
+          if (!ss.active || ((ld(T.sun, cell >> 5) >> (cell & 31)) & 1) != 0)
+            kind = 2;
+        }
+      }
+      o.vis[i] = kind == 2 ? 1 : 0;
+    }
   }
-  out_vis[i] = vis;
+  if (NEE) {
+    // warp-aggregated appends to the second list
+    const int lane = threadIdx.x & 31;
+    const unsigned listed = __ballot_sync(0xffffffffu, kind == 1);
+    const unsigned settled = __ballot_sync(0xffffffffu, kind == 2);
+    if (lane == 0 && settled != 0u) atomicAdd(counts + 2, __popc(settled));
+    if (listed != 0u) {
+      const int leader = __ffs(listed) - 1;
+      int base = 0;
+      if (lane == leader) base = atomicAdd(counts + 1, __popc(listed));
+      base = __shfl_sync(0xffffffffu, base, leader);
+      if (kind == 1) {
+        const long long k = base + __popc(listed & ((1u << lane) - 1u));
+        N.rays[k] = spx;
+        N.rays[N.n + k] = spy;
+        N.rays[2 * N.n + k] = spz;
+        N.rays[3 * N.n + k] = ldx;
+        N.rays[4 * N.n + k] = ldy;
+        N.rays[5 * N.n + k] = ldz;
+        N.idx[k] = i;
+      }
+    }
+  }
+}
+
+// Pass 3: the listed NEE shadow rays, densely; visible = escaped (no hit,
+// advance budget not exhausted).
+__global__ void __launch_bounds__(TRACE_THREADS) nee_shadow_kernel(
+    Tables T, Nee N, const int* __restrict__ counts, int* __restrict__ vis,
+    int sun) {
+  const int k = blockIdx.x * TRACE_THREADS + threadIdx.x;
+  if (k >= counts[1]) return;
+  const float* p = N.rays;
+  Ray r;
+  State s;
+  init_ray<true>(T, p[k], p[N.n + k], p[2 * N.n + k], p[3 * N.n + k],
+                 p[4 * N.n + k], p[5 * N.n + k], N.scal[11], BIG, r, s);
+  run<true>(T, r, s, sun != 0);
+  vis[N.idx[k]] = (s.hit == 0 && s.exh == 0) ? 1 : 0;
 }
 
 }  // namespace
 
+// One B1 dispatch: the passes above, on ``stream``, with nothing read back
+// to the host. ``counts`` (3 ints) must be zero on entry; ``list`` holds n
+// ints; with NEE ``nee_rays`` 6n floats and ``nee_idx`` n ints.
 extern "C" int traverse(
     const void* lod2, const void* solid, const void* dist3, const void* rankb,
     const void* occm, const void* occb, const void* mlo, const void* mhi,
-    const void* colors, const void* palette, int res, int max_advances,
-    const void* ox, const void* oy, const void* oz, const void* dx,
-    const void* dy, const void* dz, float tmin, const void* tmax,
-    const void* alive, const void* u0, const void* u1, const void* alt,
-    const void* nee, void* out_t, void* out_ix, void* out_iy, void* out_iz,
-    void* out_nx, void* out_ny, void* out_nz, void* out_iters,
-    void* out_color, void* out_active, void* out_vis, int shadow,
-    long long n, void* stream) {
+    const void* colors, const void* palette, const void* sun_open, int res,
+    int max_advances, const void* ox, const void* oy, const void* oz,
+    const void* dx, const void* dy, const void* dz, float tmin,
+    const void* tmax, const void* alive,
+    const void* u0, const void* u1, const void* alt, const void* nee,
+    void* out_t, void* out_ix, void* out_iy, void* out_iz, void* out_nx,
+    void* out_ny, void* out_nz, void* out_iters, void* out_color,
+    void* out_active, void* out_vis, void* list, void* counts,
+    void* nee_rays, void* nee_idx, int shadow, int use_sun_open,
+    int nee_sun, int nee_src_open, long long n, void* stream) {
+  if (n <= 0) return 0;
+  if (n > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
   Tables T;
   T.lod2 = (const int*)lod2; T.solid = (const int*)solid;
   T.dist3 = (const int*)dist3; T.rankb = (const int*)rankb;
   T.occm = (const int*)occm; T.occb = (const int*)occb;
   T.mlo = (const int*)mlo; T.mhi = (const int*)mhi;
   T.colors = (const int*)colors; T.palette = (const int*)palette;
+  T.sun = (const int*)sun_open;
   T.res = res; T.max_advances = max_advances;
-  if (n > 0) {
-    int threads = 128;
-    long long blocks = (n + threads - 1) / threads;
-    auto kernel = shadow ? traverse_kernel<true> : traverse_kernel<false>;
-    kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-        T, (const float*)ox, (const float*)oy, (const float*)oz,
-        (const float*)dx, (const float*)dy, (const float*)dz,
-        tmin, (const float*)tmax, (const int*)alive,
-        (const float*)u0, (const float*)u1, (const float*)alt,
-        (const float*)nee, (float*)out_t, (int*)out_ix, (int*)out_iy,
-        (int*)out_iz, (float*)out_nx, (float*)out_ny, (float*)out_nz,
-        (int*)out_iters, (int*)out_color, (int*)out_active, (int*)out_vis, n);
+  Rays R;
+  R.ox = (const float*)ox; R.oy = (const float*)oy; R.oz = (const float*)oz;
+  R.dx = (const float*)dx; R.dy = (const float*)dy; R.dz = (const float*)dz;
+  R.tmin = tmin; R.tmax = (const float*)tmax;
+  Outs o;
+  o.t = (float*)out_t; o.ix = (int*)out_ix; o.iy = (int*)out_iy;
+  o.iz = (int*)out_iz; o.nx = (float*)out_nx; o.ny = (float*)out_ny;
+  o.nz = (float*)out_nz; o.iters = (int*)out_iters;
+  o.color = (int*)out_color; o.active = (int*)out_active;
+  o.vis = (int*)out_vis;
+  Nee N;
+  N.u0 = (const float*)u0; N.u1 = (const float*)u1;
+  N.alt = (const float*)alt; N.scal = (const float*)nee;
+  N.rays = (float*)nee_rays; N.idx = (int*)nee_idx; N.n = n;
+  int* cnt = (int*)counts;
+  int* lst = (int*)list;
+  cudaStream_t st = (cudaStream_t)stream;
+  const bool* al = (const bool*)alive;
+  const unsigned cblocks =
+      (unsigned)((n + COMPACT_THREADS - 1) / COMPACT_THREADS);
+  const unsigned tblocks = (unsigned)((n + TRACE_THREADS - 1) / TRACE_THREADS);
+  cudaError_t err;
+  if (shadow) {
+    compact_kernel<true><<<cblocks, COMPACT_THREADS, 0, st>>>(al, n, lst, cnt,
+                                                              o);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    anyhit_kernel<<<tblocks, TRACE_THREADS, 0, st>>>(T, R, lst, cnt, o.t,
+                                                     use_sun_open);
+    return (int)cudaGetLastError();
   }
+  compact_kernel<false><<<cblocks, COMPACT_THREADS, 0, st>>>(al, n, lst, cnt,
+                                                             o);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if (nee == nullptr) {
+    closest_kernel<false><<<tblocks, TRACE_THREADS, 0, st>>>(
+        T, R, lst, cnt, o, N, use_sun_open, 0);
+    return (int)cudaGetLastError();
+  }
+  closest_kernel<true><<<tblocks, TRACE_THREADS, 0, st>>>(
+      T, R, lst, cnt, o, N, use_sun_open, nee_src_open);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  nee_shadow_kernel<<<tblocks, TRACE_THREADS, 0, st>>>(T, N, cnt, o.vis,
+                                                       nee_sun);
   return (int)cudaGetLastError();
 }

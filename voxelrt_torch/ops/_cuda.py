@@ -34,10 +34,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v"]
 SOURCES = ("dda", "texfetch", "resample", "probe")
 
-# "traverse" counts every B1 launch, "traverse_shadow" those of them in
-# shadow mode.
-LAUNCHES = {"traverse": 0, "traverse_shadow": 0, "point_fetch": 0,
-            "bilinear_fetch": 0, "temporal_taps": 0, "probe": 0}
+# B1's passes: "traverse" counts its march launches (one per dispatch),
+# "traverse_shadow" those of them in shadow mode, "traverse_compact" the
+# alive-list launches and "traverse_nee" the dense NEE shadow-ray launches.
+LAUNCHES = {"traverse": 0, "traverse_shadow": 0, "traverse_compact": 0,
+            "traverse_nee": 0, "point_fetch": 0, "bilinear_fetch": 0,
+            "temporal_taps": 0, "probe": 0}
 
 _libs: dict = {}
 

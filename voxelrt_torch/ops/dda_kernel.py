@@ -5,14 +5,26 @@ Same per-ray semantics as the JAX kernel (renderer/raytracer.py:72-155 and
 its TPU redesign): the AABB clip, the distance-field / free-X-slab march,
 the rank-compressed mask fetch with a whole-cell in-register DDA, the face
 normal flipped toward the ray, the hit colour word (direct or palette
-mode), and in NEE mode the retired primary's in-place sun-cone shadow ray.
-The TPU kernel's lock-step blocks, ray queues, refill rounds, march unroll
-and fetch deferral only schedule that per-ray sequence (the JAX package
-tests the queued and plain forms bitwise equal), so both versions here run
-it per ray: the CUDA kernel (csrc/dda.cu) one thread per ray, the plain
-twin below as a masked loop over the still-active rays. The sun-open
-certificate early-out (identical verdicts) is not implemented:
-``use_sun_open`` is accepted and ignored.
+mode), and in NEE mode the retired primary's sun-cone shadow ray. The TPU
+kernel's lock-step blocks, ray queues, refill rounds, march unroll and
+fetch deferral only schedule that per-ray sequence (the JAX package tests
+the queued and plain forms bitwise equal), so both versions here run it per
+ray: the CUDA kernel (csrc/dda.cu) over a device-built list of the alive
+rays, one thread per ray, with the NEE shadow rays gathered into a second
+list and traced in a second launch; the plain twin below as a masked loop
+over the still-active rays.
+
+The sun-open certificate (``DeviceTables.sun_open_words``, one bit per 4^3
+cell: the whole sun cone escapes the grid from anywhere in the cell) retires
+shadow rays early, with the JAX kernel's verdicts:
+
+* at every advance, before the occupancy test, a live in-bounds ray standing
+  in a certified cell retires as a miss: every ray with ``use_sun_open``
+  (the explicit sun-shadow dispatch), the NEE shadow rays unless
+  ``sun_mode='off'``;
+* at conversion, with ``nee_src_open``, an NEE shadow ray whose AABB clip
+  misses the grid or whose entry cell is certified is 'visible' without a
+  march.
 
 Shadow mode (``any_hit=True, fetch_colors=False``, the explicit sun-shadow
 dispatch of ``nee_in_kernel=False``) runs the same march and in-cell DDA
@@ -53,6 +65,7 @@ class DeviceTables(NamedTuple):
     mixed_hi: torch.Tensor
     cell_colors: torch.Tensor
     palette_words: torch.Tensor  # (0,) in direct mode
+    sun_open_words: torch.Tensor  # sun-open bit per 4^3 cell (LOD2 layout)
     grid_res: int
 
 
@@ -66,7 +79,8 @@ def upload_tables(tables, device) -> DeviceTables:
         up(tables.lod2_words), up(tables.solid_words), up(tables.dist3_words),
         up(tables.rank_base), up(tables.occ_morton), up(tables.occ_rank_base),
         up(tables.mixed_lo), up(tables.mixed_hi), up(tables.cell_colors),
-        up(tables.palette_words), int(tables.grid_res))
+        up(tables.palette_words), up(tables.sun_open_words),
+        int(tables.grid_res))
 
 
 class PallasTraceResult(NamedTuple):
@@ -79,6 +93,9 @@ class PallasTraceResult(NamedTuple):
     color_word: torch.Tensor  # int32 bits of r|g<<8|b<<16|mat<<24 (0 unless hit)
     active: torch.Tensor  # int32: 1 = unfinished (advance budget hit)
     nee_visible: torch.Tensor | None = None  # int32 in-kernel NEE verdict
+    # int32 (3,) on the rays' device: alive rays traced, NEE shadow rays
+    # marched, NEE shadow rays settled at conversion (``nee_src_open``)
+    counts: torch.Tensor | None = None
 
 
 # --- plain twin ---------------------------------------------------------------
@@ -261,13 +278,20 @@ def _march(T, r, s, px, py, pz, w2):
     return s["t"] + mint, nap, an
 
 
-def _step(T, r, s, max_advances):
+def _step(T, r, s, max_advances, sun):
+    """One advance of every ray in ``s``; ``sun``: retire live rays that
+    stand in a sun-open cell as misses first (dda_pallas.py:482-496)."""
     res = T["res"]
     r2 = res >> 2
     px, py, pz, nx, ny, nz = _unpack_word(s["word"])
     inb = ((px >= 0) & (px < res) & (py >= 0) & (py < res) & (pz >= 0)
            & (pz < res))
     live = ~(s["t"] > r["far"]) & inb
+    if sun:
+        li = torch.nonzero(live).squeeze(1)
+        cell = ((pz[li] >> 2) * r2 + (py[li] >> 2)) * r2 + (px[li] >> 2)
+        esc = ((T["sun"][cell >> 5] >> (cell & 31)) & 1) != 0
+        live[li[esc]] = False
     out = dict(s)
     out["t"] = _sel(live, s["t"], BIG)
     out["active"] = live.clone()
@@ -325,14 +349,15 @@ def _step(T, r, s, max_advances):
     return out
 
 
-def _run(T, ray, st, max_advances):
-    """Step every still-active ray until all retire (in place on ``st``)."""
+def _run(T, ray, st, max_advances, sun=False):
+    """Step every still-active ray until all retire; returns the final
+    state (``st`` is left as it is)."""
     st = {k: v.clone() for k, v in st.items()}
     idx = torch.nonzero(st["active"]).squeeze(1)
     while idx.numel():
         r = {k: v[idx] for k, v in ray.items()}
         s = {k: v[idx] for k, v in st.items()}
-        s = _step(T, r, s, max_advances)
+        s = _step(T, r, s, max_advances, sun)
         for k in st:
             st[k][idx] = s[k]
         idx = idx[s["active"]]
@@ -366,43 +391,71 @@ def _hit_color(T, px, py, pz, hit):
     return out
 
 
-def _check_mode(any_hit, fetch_colors, nee):
+SUN_MODES = ("all", "half", "off")
+
+
+def _check_mode(any_hit, fetch_colors, nee, use_sun_open, sun_mode):
     if any_hit != (not fetch_colors):
         raise ValueError("B1 has two modes: closest hit with the colour fetch "
                          "(any_hit=False, fetch_colors=True) and shadow "
                          "(any_hit=True, fetch_colors=False)")
     if any_hit and nee is not None:
         raise ValueError("in-kernel NEE requires the closest-hit mode")
+    if use_sun_open and nee is not None:
+        raise ValueError("in-kernel NEE reads the sun-open table by sun_mode; "
+                         "use_sun_open is for shadow-ray dispatches")
+    if sun_mode not in SUN_MODES:
+        raise ValueError(f"sun_mode must be one of {SUN_MODES}")
 
 
-def raytrace_plain(tables: DeviceTables, origin: V3, direction: V3, tmin,
-                   tmax, max_advances: int = 512, nee=None, alive=None,
-                   any_hit=False, fetch_colors=True, use_sun_open=False
-                   ) -> PallasTraceResult:
-    """Plain PyTorch twin of B1 (see ``raytrace`` for the arguments)."""
-    _check_mode(any_hit, fetch_colors, nee)
-    n = origin.x.shape[0]
-    dev = origin.x.device
+def _table_dict(tables: DeviceTables, any_hit):
     T = dict(lod2=tables.lod2_words, solid=tables.solid_words,
              dist3=tables.dist3_words, rankb=tables.rank_base,
              occm=tables.occ_morton, occb=tables.occ_rank_base,
              mlo=tables.mixed_lo, mhi=tables.mixed_hi,
-             colors=tables.cell_colors, palette=tables.palette_words)
+             colors=tables.cell_colors, palette=tables.palette_words,
+             sun=tables.sun_open_words)
     T = {k: v.to(torch.int64) for k, v in T.items()}
     T["res"] = tables.grid_res
     T["any_hit"] = any_hit
+    return T
+
+
+def _trace_primaries(tables, origin, direction, tmin, tmax, max_advances,
+                     alive, any_hit, use_sun_open):
+    """The primaries' march: returns (T, ray, final state). The state's
+    ``adv`` holds each ray's advance count, which shadow mode does not
+    return."""
+    n = origin.x.shape[0]
+    dev = origin.x.device
+    T = _table_dict(tables, any_hit)
     tmin = torch.as_tensor(tmin, dtype=torch.float32, device=dev).expand(n)
     tmax = torch.as_tensor(tmax, dtype=torch.float32, device=dev).expand(n)
     ray, st = _init_rays(tables.grid_res, tuple(origin), tuple(direction),
                          tmin, tmax, any_hit)
     if alive is not None:
         st["active"] = st["active"] & (alive != 0)
-    st = _run(T, ray, st, max_advances)
+    return T, ray, _run(T, ray, st, max_advances, use_sun_open)
+
+
+def raytrace_plain(tables: DeviceTables, origin: V3, direction: V3, tmin,
+                   tmax, max_advances: int = 512, nee=None, alive=None,
+                   any_hit=False, fetch_colors=True, use_sun_open=False,
+                   sun_mode="half", nee_src_open=False) -> PallasTraceResult:
+    """Plain PyTorch twin of B1 (see ``raytrace`` for the arguments)."""
+    _check_mode(any_hit, fetch_colors, nee, use_sun_open, sun_mode)
+    n = origin.x.shape[0]
+    dev = origin.x.device
+    T, ray, st = _trace_primaries(tables, origin, direction, tmin, tmax,
+                                  max_advances, alive, any_hit, use_sun_open)
+    n_alive = n if alive is None else int((alive != 0).sum())
+    counts = [n_alive, 0, 0]
     if any_hit:
         dist = _sel(st["t"] >= BIG, float("inf"), st["t"])
         if alive is not None:
             dist = _sel(alive == 0, float("inf"), dist)
-        return PallasTraceResult(dist, None, None, None, None, None)
+        return PallasTraceResult(dist, None, None, None, None, None,
+                                 counts=_counts(counts, dev))
     px, py, pz, hnx, hny, hnz = _unpack_word(st["word"])
     flip = ((direction.x * hnx + direction.y * hny) + direction.z * hnz) > 0.0
     nrm = [_sel(flip, -c, c) for c in (hnx, hny, hnz)]
@@ -412,7 +465,9 @@ def raytrace_plain(tables: DeviceTables, origin: V3, direction: V3, tmin,
     act = (st["active"] | st["exh"]).to(torch.int32)
     vis = None
     if nee is not None:
-        vis = _nee_plain(T, ray, st, nrm, nee, max_advances, alive)
+        vis, counts[1], counts[2] = _nee_plain(
+            T, ray, st, nrm, nee, max_advances, alive, sun_mode != "off",
+            nee_src_open)
     if alive is not None:
         dead = alive == 0
         dist = _sel(dead, float("inf"), dist)
@@ -431,12 +486,20 @@ def raytrace_plain(tables: DeviceTables, origin: V3, direction: V3, tmin,
         color_word=color.to(torch.int32),
         active=act,
         nee_visible=vis,
+        counts=_counts(counts, dev),
     )
 
 
-def _nee_plain(T, ray, st, nrm, nee, max_advances, alive):
+def _counts(counts, dev):
+    return torch.tensor(counts, dtype=torch.int32).to(dev)
+
+
+def _nee_plain(T, ray, st, nrm, nee, max_advances, alive, sun, src_open):
     """The retired primaries' sun-cone shadow rays (dda_pallas.py
-    nee_conv_data) and their visibility verdicts."""
+    nee_conv_data) and their visibility verdicts; ``sun``: the per-advance
+    sun-open early-out, ``src_open``: the conversion-time one
+    (dda_pallas.py nee_instant). Returns (verdicts, rays marched, rays
+    settled at conversion)."""
     scal = nee["scalars"]
     L, X, Y = scal[0:3], scal[3:6], scal[6:9]
     cone_cos, epsg, shadow_tmin = scal[9], scal[10], scal[11]
@@ -465,16 +528,27 @@ def _nee_plain(T, ray, st, nrm, nee, max_advances, alive):
     vis = torch.zeros_like(t, dtype=torch.int32)
     ci = torch.nonzero(conv).squeeze(1)
     if ci.numel() == 0:
-        return vis
+        return vis, 0, 0
     n = ci.numel()
     dev = t.device
     sray, sst = _init_rays(
         T["res"], tuple(c[ci] for c in sp), tuple(c[ci] for c in ld),
         shadow_tmin.expand(n), torch.full((n,), BIG, dtype=torch.float32,
                                           device=dev))
-    sst = _run(T, sray, sst, max_advances)
-    vis[ci] = (~sst["hit"] & ~sst["exh"]).to(torch.int32)
-    return vis
+    settled = torch.zeros(n, dtype=torch.bool, device=dev)
+    if src_open:
+        # the AABB clip misses the grid, or the entry cell is sun-open
+        r2 = T["res"] >> 2
+        px, py, pz = _unpack_word(sst["word"])[:3]
+        cell = ((pz >> 2) * r2 + (py >> 2)) * r2 + (px >> 2)
+        cell = _sel(sst["active"], cell, 0)
+        open_ = ((T["sun"][cell >> 5] >> (cell & 31)) & 1) != 0
+        settled = ~sst["active"] | open_
+        sst["active"] = sst["active"] & ~settled
+    sst = _run(T, sray, sst, max_advances, sun)
+    vis[ci] = (settled | (~sst["hit"] & ~sst["exh"])).to(torch.int32)
+    n_settled = int(settled.sum())
+    return vis, n - n_settled, n_settled
 
 
 # --- wrapper ------------------------------------------------------------------
@@ -485,40 +559,49 @@ def nee_params(u, alt_t, light_dir, tangent, bitangent, cone_cos, eps_grid,
     """Pack the in-kernel NEE inputs: per-ray cone uniforms ``u`` = (u0, u1)
     and floor crossing ``alt_t`` (grid units, inf = none), plus the launch
     scalars [L, X, Y, cone_cos, eps_grid, shadow_tmin] as one float32
-    tensor (dda_pallas.py raytrace_pallas ``nee=``)."""
-    vals = []
-    for v in (light_dir, tangent, bitangent):
-        vals += [torch.as_tensor(c, dtype=torch.float32, device=device)
-                 .reshape(()) for c in v]
-    for v in (cone_cos, eps_grid, shadow_tmin):
-        vals.append(torch.as_tensor(v, dtype=torch.float32,
-                                    device=device).reshape(()))
+    tensor (dda_pallas.py raytrace_pallas ``nee=``). A Python number becomes
+    a device fill, not a host-to-device copy."""
+    def one(c):
+        if isinstance(c, torch.Tensor):
+            return c.to(device=device, dtype=torch.float32).reshape(())
+        return torch.full((), float(c), dtype=torch.float32, device=device)
+
+    vals = [one(c) for v in (light_dir, tangent, bitangent) for c in v]
+    vals += [one(v) for v in (cone_cos, eps_grid, shadow_tmin)]
     return dict(u0=u[0], u1=u[1], alt_t=alt_t, scalars=torch.stack(vals))
 
 
 def raytrace(tables: DeviceTables, origin: V3, direction: V3, tmin, tmax,
              max_advances: int = 512, nee=None, alive=None, any_hit=False,
-             fetch_colors=True, use_sun_open=False) -> PallasTraceResult:
+             fetch_colors=True, use_sun_open=False, sun_mode="half",
+             nee_src_open=False) -> PallasTraceResult:
     """Trace rays in grid space [0, res)^3 (B1).
 
     origin/direction: V3 of (N,) f32; tmin: a float, the same for every ray;
-    tmax: a float or (N,) f32. ``nee``
-    (from :func:`nee_params`) turns on in-kernel NEE and fills
-    ``nee_visible``. ``alive``: optional (N,) bool/int mask; dead rays return
-    the canonical miss (distance inf, ipos -1, normal 0, iters 0, color 0,
-    active 0, nee_visible 0). ``any_hit=True, fetch_colors=False`` is the
-    shadow mode: only ``distance`` comes back (inf for a dead ray).
-    ``use_sun_open`` (the sun-visibility certificate early-out of the JAX
-    kernel, identical verdicts) is accepted and not used. CPU tensors run
-    the plain twin; CUDA tensors launch the kernel."""
+    tmax: a float or (N,) f32. ``nee`` (from :func:`nee_params`) turns on
+    in-kernel NEE and fills ``nee_visible``. ``alive``: optional (N,)
+    bool/int mask; dead rays return the canonical miss (distance inf, ipos
+    -1, normal 0, iters 0, color 0, active 0, nee_visible 0).
+    ``any_hit=True, fetch_colors=False`` is the shadow mode: only
+    ``distance`` comes back (inf for a dead ray).
+
+    The sun-open early-outs (the JAX kernel's, with its verdicts):
+    ``use_sun_open`` retires every ray standing in a sun-open cell as a miss
+    (shadow rays inside the sun cone only); ``sun_mode`` does the same for
+    the NEE shadow rays unless it is 'off' ('all' and 'half' both check
+    every advance here); ``nee_src_open`` settles an NEE shadow ray whose
+    clip misses the grid or whose entry cell is sun-open as visible at
+    conversion. CPU tensors run the plain twin; CUDA tensors launch the
+    kernel, with no host synchronisation: ``counts`` stays on the card."""
     dev = origin.x.device
     if dev.type == "cpu":
         return raytrace_plain(tables, origin, direction, tmin, tmax,
                               max_advances, nee, alive, any_hit,
-                              fetch_colors, use_sun_open)
+                              fetch_colors, use_sun_open, sun_mode,
+                              nee_src_open)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    _check_mode(any_hit, fetch_colors, nee)
+    _check_mode(any_hit, fetch_colors, nee, use_sun_open, sun_mode)
     n = origin.x.shape[0]
     f32, i32 = torch.float32, torch.int32
     for name, c in zip(("ox", "oy", "oz", "dx", "dy", "dz"),
@@ -526,18 +609,23 @@ def raytrace(tables: DeviceTables, origin: V3, direction: V3, tmin, tmax,
         _cuda.require(c, name, f32, dev, (n,))
     for name in DeviceTables._fields[:-1]:
         _cuda.require(getattr(tables, name), name, i32, dev)
-    tmax = torch.as_tensor(tmax, dtype=f32, device=dev).expand(n).contiguous()
-    alive_t = None
+    if not isinstance(tmax, torch.Tensor):
+        tmax = torch.full((n,), float(tmax), dtype=f32, device=dev)
+    _cuda.require(tmax, "tmax", f32, dev, (n,))
     if alive is not None:
-        alive_t = alive.to(i32).contiguous()
-        _cuda.require(alive_t, "alive", i32, dev, (n,))
+        if alive.dtype != torch.bool:
+            alive = alive != 0
+        _cuda.require(alive, "alive", torch.bool, dev, (n,))
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     nee_args = [None] * 4
+    nee_rays = nee_idx = None
     if nee is not None:
         for name in ("u0", "u1", "alt_t"):
             _cuda.require(nee[name], name, f32, dev, (n,))
         _cuda.require(nee["scalars"], "nee scalars", f32, dev, (12,))
         nee_args = [nee["u0"], nee["u1"], nee["alt_t"], nee["scalars"]]
+        nee_rays = torch.empty(6 * n, dtype=f32, device=dev)
+        nee_idx = torch.empty(n, dtype=i32, device=dev)
     out_t = torch.empty(n, dtype=f32, device=dev)
     if any_hit:
         ipos, nrm, iters, color, act = [None] * 3, [None] * 3, None, None, None
@@ -547,26 +635,38 @@ def raytrace(tables: DeviceTables, origin: V3, direction: V3, tmin, tmax,
         iters, color, act = (torch.empty(n, dtype=i32, device=dev)
                              for _ in range(3))
     vis = torch.empty(n, dtype=i32, device=dev) if nee is not None else None
+    alive_list = torch.empty(n, dtype=i32, device=dev)
+    counts = torch.zeros(3, dtype=i32, device=dev)
     pal = tables.palette_words if tables.palette_words.shape[0] else None
 
     fn = _cuda.lib("dda").traverse
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_int]
-                   + [ctypes.c_void_p] * 6 + [ctypes.c_float]
-                   + [ctypes.c_void_p] * 17 + [ctypes.c_int, ctypes.c_longlong,
-                                               ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p] * 6
+                   + [ctypes.c_float] + [ctypes.c_void_p] * 2
+                   + [ctypes.c_void_p] * 19 + [ctypes.c_int] * 4
+                   + [ctypes.c_longlong, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     err = fn(*(ptr(getattr(tables, f)) for f in DeviceTables._fields[:9]),
-             ptr(pal), tables.grid_res, max_advances,
-             *(ptr(c) for c in (*origin, *direction)), float(tmin), ptr(tmax),
-             ptr(alive_t), *(ptr(a) for a in nee_args), ptr(out_t),
+             ptr(pal), ptr(tables.sun_open_words), tables.grid_res,
+             max_advances, *(ptr(c) for c in (*origin, *direction)),
+             float(tmin), ptr(tmax), ptr(alive),
+             *(ptr(a) for a in nee_args), ptr(out_t),
              *(ptr(c) for c in ipos), *(ptr(c) for c in nrm), ptr(iters),
-             ptr(color), ptr(act), ptr(vis), int(any_hit), n,
+             ptr(color), ptr(act), ptr(vis), ptr(alive_list), ptr(counts),
+             ptr(nee_rays), ptr(nee_idx), int(any_hit), int(use_sun_open),
+             int(sun_mode != "off"), int(nee_src_open), n,
              _cuda.stream_ptr(dev))
     _cuda.check(err, "traverse")
-    _cuda.LAUNCHES["traverse"] += 1
+    if n:
+        _cuda.LAUNCHES["traverse_compact"] += 1
+        _cuda.LAUNCHES["traverse"] += 1
+        if any_hit:
+            _cuda.LAUNCHES["traverse_shadow"] += 1
+        if nee is not None:
+            _cuda.LAUNCHES["traverse_nee"] += 1
     if any_hit:
-        _cuda.LAUNCHES["traverse_shadow"] += 1
-        return PallasTraceResult(out_t, None, None, None, None, None)
+        return PallasTraceResult(out_t, None, None, None, None, None,
+                                 counts=counts)
     return PallasTraceResult(distance=out_t, ipos=V3(*ipos), normal=V3(*nrm),
                              iters=iters, color_word=color, active=act,
-                             nee_visible=vis)
+                             nee_visible=vis, counts=counts)

@@ -201,8 +201,8 @@ def next_hit(cfg, scene, params, pos: V3, d: V3, mask, shadow_ray=False,
     ``shadow_ray``: an any-hit dispatch (B1's shadow mode): only ``closest``
     of the result is meaningful, finite when something blocks the ray.
     ``sun_shadow`` marks shadow rays sampled within the sun's NEE cone, for
-    which the JAX kernel may use its sun-visibility certificate; the port's
-    kernel gives the same verdicts without it.
+    which the kernel may use its sun-visibility certificate
+    (``use_sun_open``; the verdicts are the same without it).
     ``nee_u``: (u0, u1) cone uniforms enabling in-kernel NEE; returns
     (Hit, nee_visible) then, a plain Hit otherwise. The floor crossing is
     the kernel's alternative shadow origin; floor OCCLUSION of the shadow
@@ -252,7 +252,8 @@ def next_hit(cfg, scene, params, pos: V3, d: V3, mask, shadow_ray=False,
     tr = raytrace(scene.tables, eye_scaled, d, EPS, tmax,
                   cfg.max_dda_advances, nee=nee, alive=mask,
                   any_hit=shadow_ray, fetch_colors=not shadow_ray,
-                  use_sun_open=sun_shadow)
+                  use_sun_open=sun_shadow, sun_mode=cfg.dda_sun_mode,
+                  nee_src_open=cfg.dda_nee_src_open == "on")
     vox_dist = tr.distance * cfg.voxel_dx
     vox_ok = mask & (vox_dist < closest)
     closest = torch.where(vox_ok, vox_dist, closest)
