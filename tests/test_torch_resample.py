@@ -4,8 +4,10 @@ tests/test_resample.py (64x48 at render scale 0.5, seed 5), for both tap
 filters and both passes (depth gate without extra = diffuse, extra without
 depth gate = specular).
 
-The JAX side runs its Pallas kernel in interpret mode; the port runs the
-kernel's plain twin on the CPU. Tolerances: the packed bf16 words are exact.
+The JAX side runs its Pallas kernel in interpret mode on words packed by its
+own ``pack2_bf16``; the port hands the frame buffers' views to the kernel's
+plain twin on the CPU, which packs them itself. Tolerances: the packed bf16
+words are exact.
 Twin against Pallas kernel, and gather path against gather path, share their
 sources and their arithmetic, so outputs agree to rtol 1e-5 / atol 1e-6 on
 at least 99.5% of pixels; the rest is a normal or depth gate flipped by a
@@ -24,6 +26,8 @@ from test_resample import _Params, _setup
 
 from voxelrt.config import RenderConfig as JCfg
 from voxelrt.ops import resample as jrs
+from voxelrt.ops.packing import encode_unit_vector_3x16 as jpack_encode
+from voxelrt.ops.transforms import linearize_depth as jtr_lin
 from voxelrt.render import temporal as jtemporal
 
 from voxelrt_torch.config import RenderConfig as TCfg
@@ -211,50 +215,161 @@ def test_dispatch_rule_follows_config_not_device():
     assert _cuda.LAUNCHES["temporal_taps"] == 0
 
 
+def _jax_taps(src, lanes, filt, gate_depth, extra_on):
+    """The JAX package's interpret-mode ``temporal_taps`` on the active
+    region of ``src``, its tables packed by its own ``pack2_bf16``, its
+    per-lane coordinates formed as its ``_moving_taps`` forms them. Returns
+    numpy outputs shaped as the port's."""
+    cur, hist, nrm, dep, ext = (src[k] for k in ("cur", "hist", "normals",
+                                                 "depth", "extra"))
+    aw, ah = cur.shape[:2]
+    tc, rp, cd, cn = (lanes[k] for k in ("texcoord", "rp", "cd", "cn"))
+    w, h = tc.shape[:2]
+    pk = jrs.pack2_bf16
+
+    def flat(x):
+        return jnp.asarray(np.ascontiguousarray(x)).reshape(-1)
+
+    cur_p = jnp.stack([pk(flat(cur[..., 0]), flat(cur[..., 1])),
+                       pk(flat(cur[..., 2]), jnp.zeros(aw * ah))])
+    hist_p = jnp.stack([pk(flat(hist[..., 0]), flat(hist[..., 1])),
+                        pk(flat(hist[..., 2]), flat(hist[..., 3]))])
+    pn_p = pk(flat(nrm[..., 0]).astype(jnp.float32),
+              flat(nrm[..., 1]).astype(jnp.float32))
+    pd = flat(jtr_lin(jnp.asarray(dep), _Params.proj_inv)) if gate_depth \
+        else None
+    out = jrs.temporal_taps(
+        cur_p, hist_p, pn_p, pd, flat(ext) if extra_on else None,
+        flat(tc[..., 0] * aw - 0.5), flat(tc[..., 1] * ah - 0.5),
+        flat(rp[..., 0] * aw - 0.5), flat(rp[..., 1] * ah - 0.5),
+        flat(cd), jnp.asarray(cn).reshape(-1, 3), ires_x=aw, ires_y=ah,
+        catmullrom=filt != "bilinear", gate_depth=gate_depth,
+        interpret=True)
+    shapes = ((w, h, 3), (w, h), (w, h, 4), (w, h))
+    return [None if o is None else np.asarray(o).reshape(s)
+            for o, s in zip(out, shapes)]
+
+
+def _torch_taps(src, lanes, filt, gate_depth, extra_on):
+    """The port's ``temporal_taps`` on views of ``src``'s full buffers."""
+    full = {k: _t(v) for k, v in src["full"].items()}
+    aw, ah = src["cur"].shape[:2]
+    return trs.temporal_taps(
+        full["cur"][:aw, :ah], full["hist"][:aw, :ah],
+        full["normals"][:aw, :ah], full["depth"][:aw, :ah],
+        _TParams.proj_inv, full["extra"][:aw, :ah] if extra_on else None,
+        *(_t(lanes[k]) for k in ("texcoord", "rp", "cd", "cn")),
+        catmullrom=filt != "bilinear", gate_depth=gate_depth)
+
+
+def _synthetic(seed, w=24, h=20, aw=14, ah=9, full=(19, 13)):
+    """Sources as views of larger frame buffers (row stride full[1] > ah),
+    f16 normals, and lanes whose reprojection is NaN, infinite or far off
+    the region beside ordinary ones."""
+    rng = np.random.default_rng(seed)
+    fw, fh = full
+    n = rng.normal(size=(fw, fh, 3)).astype(np.float32)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    bufs = dict(
+        cur=rng.random((fw, fh, 3)).astype(np.float32) * 4.0,
+        hist=rng.random((fw, fh, 4)).astype(np.float32) * 3.0,
+        normals=np.asarray(jpack_encode(jnp.asarray(n))),
+        depth=rng.random((fw, fh)).astype(np.float32) * 0.9 + 0.05,
+        extra=rng.random((fw, fh)).astype(np.float32) * 5.0)
+    assert bufs["normals"].dtype == np.float16
+    src = {k: v[:aw, :ah] for k, v in bufs.items()}
+    src["full"] = bufs
+    tc = np.stack(np.meshgrid((np.arange(w) + 0.5) / (2 * aw),
+                              (np.arange(h) + 0.5) / (2 * ah),
+                              indexing="ij"), -1).astype(np.float32)
+    # the previous frame a little shifted, as a moving camera gives
+    rp = np.concatenate([tc * 0.5 + 0.01, np.zeros((w, h, 1), np.float32)],
+                        -1)
+    rp[..., :2] += (rng.normal(size=(w, h, 2)) * 0.02).astype(np.float32)
+    odd = rng.random((w, h))
+    rp[odd < 0.05, 0] = np.nan
+    rp[(odd >= 0.05) & (odd < 0.08), 1] = np.inf
+    rp[(odd >= 0.08) & (odd < 0.11), 0] = -np.inf
+    rp[(odd >= 0.11) & (odd < 0.15), 1] = 4.0e7
+    rp[(odd >= 0.15) & (odd < 0.19), 0] = -3.0
+    cn = rng.normal(size=(w, h, 3)).astype(np.float32)
+    cn /= np.linalg.norm(cn, axis=-1, keepdims=True)
+    # centre depths near the previous ones, so the depth gate passes some
+    lin = np.asarray(jtr_lin(jnp.asarray(bufs["depth"]), _Params.proj_inv))
+    cd = lin[np.clip((np.arange(w) // 2), 0, fw - 1)][
+        :, np.clip(np.arange(h) // 2, 0, fh - 1)] * (
+        1.0 + (rng.random((w, h)) - 0.5) * 0.08).astype(np.float32)
+    lanes = dict(texcoord=tc, rp=rp.astype(np.float32),
+                 cd=cd.astype(np.float32), cn=cn)
+    return src, lanes
+
+
+@pytest.mark.parametrize("filt,gate_depth,extra_on", VARIANTS, ids=IDS)
+def test_twin_matches_pallas_on_strided_views(filt, gate_depth, extra_on):
+    """The twin on views of larger buffers (h > ah), f16 normals and NaN,
+    infinite and far reprojections, against the interpret-mode Pallas
+    kernel fed the JAX package's own packed words."""
+    src, lanes = _synthetic(11)
+    t_out = _torch_taps(src, lanes, filt, gate_depth, extra_on)
+    j_out = _jax_taps(src, lanes, filt, gate_depth, extra_on)
+    for a, b in zip(t_out, j_out):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert a.shape == b.shape
+    _hold(t_out, j_out, extra_on, 1e-5, 1e-6, 0.005, "strided twin")
+    # the odd lanes reach the clamp's floor as the Pallas kernel's do
+    far = ~np.isfinite(lanes["rp"][..., :2]).all(-1)
+    np.testing.assert_array_equal(t_out[1].numpy()[far], j_out[1][far])
+
+
 def test_no_in_bounds_tap_clamps_to_floor():
     """A pixel whose taps are all out of bounds (or whose history coords are
     not finite) has lo > hi in the clamp: the result is (0, 0, 0, 1) and an
     extra of 0, with w_sum 0, in the twin as in the Pallas kernel."""
-    n = 8 * 8
     rng = np.random.default_rng(1)
-    cur = rng.random((2, n)).astype(np.float32).view(np.int32)
-    hist = rng.random((2, n)).astype(np.float32).view(np.int32)
-    pn = rng.random(n).astype(np.float32).view(np.int32)
-    ex = rng.random(n).astype(np.float32)
-    m = 6
-    fxc = np.linspace(0.0, 7.0, m).astype(np.float32)
-    fyc = np.linspace(7.0, 0.0, m).astype(np.float32)
+    src = dict(cur=rng.random((8, 8, 3)).astype(np.float32),
+               hist=rng.random((8, 8, 4)).astype(np.float32),
+               normals=rng.random((8, 8, 2)).astype(np.float16),
+               depth=rng.random((8, 8)).astype(np.float32),
+               extra=rng.random((8, 8)).astype(np.float32))
+    src["full"] = dict(src)
+    fxc = np.linspace(0.0, 7.0, 6).astype(np.float32)
+    fyc = np.linspace(7.0, 0.0, 6).astype(np.float32)
     fxh = np.array([np.nan, np.inf, -np.inf, -50.0, 1e9, 3.0], np.float32)
     fyh = np.array([3.0, 3.0, 3.0, 3.0, 3.0, 400.0], np.float32)
-    cd = np.ones(m, np.float32)
-    cn = np.tile(np.array([[0.0, 0.0, 1.0]], np.float32), (m, 1))
-    for cat in (False, True):
-        cur_t, ws_t, hist_t, ex_t = trs.temporal_taps(
-            _t(cur), _t(hist), _t(pn), None, _t(ex), _t(fxc), _t(fyc),
-            _t(fxh), _t(fyh), _t(cd), _t(cn), 8, 8, cat, False)
-        cur_j, ws_j, hist_j, ex_j = jrs.temporal_taps(
-            jnp.asarray(cur), jnp.asarray(hist), jnp.asarray(pn), None,
-            jnp.asarray(ex), jnp.asarray(fxc), jnp.asarray(fyc),
-            jnp.asarray(fxh), jnp.asarray(fyh), jnp.asarray(cd),
-            jnp.asarray(cn), ires_x=8, ires_y=8, catmullrom=cat,
-            gate_depth=False, interpret=True)
+    lanes = dict(
+        texcoord=np.stack([(fxc + 0.5) / 8, (fyc + 0.5) / 8], -1).reshape(
+            2, 3, 2),
+        rp=np.stack([(fxh + 0.5) / 8, (fyh + 0.5) / 8,
+                     np.zeros(6, np.float32)], -1).reshape(2, 3, 3),
+        cd=np.ones((2, 3), np.float32),
+        cn=np.tile(np.array([0.0, 0.0, 1.0], np.float32), (2, 3, 1)))
+    for cat in ("bilinear", "catmullrom"):
+        cur_t, ws_t, hist_t, ex_t = _torch_taps(src, lanes, cat, False, True)
+        cur_j, ws_j, hist_j, ex_j = _jax_taps(src, lanes, cat, False, True)
         assert (ws_t.numpy() == 0.0).all()
         np.testing.assert_array_equal(
-            hist_t.numpy(), np.tile([[0.0, 0.0, 0.0, 1.0]], (m, 1)))
+            hist_t.numpy(), np.tile([0.0, 0.0, 0.0, 1.0], (2, 3, 1)))
         assert (ex_t.numpy() == 0.0).all()
-        np.testing.assert_array_equal(hist_t.numpy(), np.asarray(hist_j))
-        np.testing.assert_array_equal(ex_t.numpy(), np.asarray(ex_j))
-        np.testing.assert_allclose(cur_t.numpy(), np.asarray(cur_j),
-                                   rtol=1e-6, atol=1e-7)
+        np.testing.assert_array_equal(hist_t.numpy(), hist_j)
+        np.testing.assert_array_equal(ex_t.numpy(), ex_j)
+        np.testing.assert_allclose(cur_t.numpy(), cur_j, rtol=1e-6,
+                                   atol=1e-7)
+
+
+def _bits(t):
+    return None if t is None else t.contiguous().view(torch.int32)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("filt,gate_depth,extra_on", VARIANTS, ids=IDS)
 def test_cuda_kernel_matches_twin(filt, gate_depth, extra_on):
     """On a CUDA card: the hand-written kernel against its twin on the same
-    device, same inputs. Both run the same float32 operations in the same
-    order (the kernel is built without multiply-add contraction), so at
-    least 99.9% of lanes agree to 1e-6 relative."""
+    device, same inputs, every output bit-equal (the kernel is built
+    without multiply-add contraction and runs the twin's float32
+    operations in the same order): on ``_moving_taps``' own call, and on a
+    synthetic call whose reprojections spread each block's taps beyond its
+    shared-memory box, so that both of the kernel's routes run."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     dev = torch.device("cuda")
@@ -282,13 +397,33 @@ def test_cuda_kernel_matches_twin(filt, gate_depth, extra_on):
         ttemporal.temporal_taps = orig
     assert _cuda.LAUNCHES["temporal_taps"] == before + 1
     a, k = seen[0]
-    p_out = trs.temporal_taps_plain(*a, k["ires_x"], k["ires_y"],
-                                    k["catmullrom"], k["gate_depth"])
+    p_out = trs.temporal_taps_plain(*a, **k)
     shapes = ((64, 48, 3), (64, 48), (64, 48, 4), (64, 48))
     for kk, pp, shp in zip(k_out, p_out, shapes):
-        if kk is None:
-            assert pp is None
-            continue
-        frac = _outside(kk.cpu().numpy(), pp.reshape(shp).cpu().numpy(),
-                        1e-6, 1e-9)
-        assert frac <= 0.001, frac
+        assert (kk is None) == (pp is None)
+        if kk is not None:
+            assert kk.shape == shp
+            assert torch.equal(_bits(kk), _bits(pp))
+    # a sudden turn on the left half: those blocks' boxes overflow shared
+    # memory; the right half's sky and far lanes leave their blocks' boxes
+    src, lanes = _synthetic(3, w=96, h=64, aw=60, ah=40, full=(70, 50))
+    jitter = np.random.default_rng(4).normal(size=(48, 64, 2)) * 0.8
+    lanes["rp"][:48, :, :2] += jitter.astype(np.float32)
+    full = {k: _t(v).to(dev) for k, v in src["full"].items()}
+    views = (full["cur"][:60, :40], full["hist"][:60, :40],
+             full["normals"][:60, :40], full["depth"][:60, :40],
+             _TParams.proj_inv.to(dev),
+             full["extra"][:60, :40] if extra_on else None,
+             *(_t(lanes[k]).to(dev) for k in ("texcoord", "rp", "cd", "cn")))
+    kw = dict(catmullrom=filt != "bilinear", gate_depth=gate_depth)
+    routes = torch.zeros(4, dtype=torch.int32, device=dev)
+    k_out = trs.temporal_taps(*views, **kw, counts=routes)
+    p_out = trs.temporal_taps_plain(*views, **kw)
+    blocks, box_global, lanes_global, staged = routes.tolist()
+    assert blocks == 2 * 12 and 0 < box_global < blocks, routes
+    assert lanes_global > box_global * 256, routes
+    assert 0 < staged <= (blocks - box_global) * 1024, routes
+    for kk, pp in zip(k_out, p_out):
+        assert (kk is None) == (pp is None)
+        if kk is not None:
+            assert torch.equal(_bits(kk), _bits(pp))

@@ -111,11 +111,14 @@ def cone_sample_pdf(cos_theta_max, cos_theta):
     simplification (the pdf ignores the cone orientation); it is part of
     the image. Returns a tensor shaped like ``cos_theta``."""
     pdf = 1.0 / (2.0 * PI * (1.0 - cos_theta_max))
-    cos_theta = torch.as_tensor(cos_theta, dtype=torch.float32,
-                                device=torch.as_tensor(cos_theta_max).device)
+    dev = torch.as_tensor(cos_theta_max).device
+    if isinstance(cos_theta, torch.Tensor):
+        cos_theta = cos_theta.to(device=dev, dtype=torch.float32)
+    else:
+        # filled on the device: no host-to-device copy
+        cos_theta = torch.full((), cos_theta, dtype=torch.float32, device=dev)
     return torch.where(cos_theta >= cos_theta_max, pdf,
-                       torch.zeros((), dtype=torch.float32,
-                                   device=cos_theta.device))
+                       torch.zeros((), dtype=torch.float32, device=dev))
 
 
 def power_heuristic(a, b):

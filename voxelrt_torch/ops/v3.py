@@ -140,7 +140,7 @@ def vnormalize(v: V3, eps: float = 1e-20) -> V3:
 
 def _where(m, a, b):
     if not isinstance(a, torch.Tensor) and not isinstance(b, torch.Tensor):
-        a = torch.tensor(a, dtype=torch.float32, device=m.device)
+        a = torch.full((), a, dtype=torch.float32, device=m.device)
     return torch.where(m, a, b)
 
 

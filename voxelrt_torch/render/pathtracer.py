@@ -278,9 +278,9 @@ def get_cast_dir(cfg, params, u, v, camera_is_moving: bool,
                  render_scale: float, jitter_u):
     """Primary ray directions (renderer/pathtracer.py:293-312); ``jitter_u``
     holds the per-ray (u0, u1) TAA jitter uniforms of each ray's sample."""
-    iw = torch.tensor(1.0 / cfg.image_res[0], dtype=torch.float32)
-    ih = torch.tensor(1.0 / cfg.image_res[1], dtype=torch.float32)
-    iw, ih = iw.to(u.device), ih.to(u.device)
+    # 0-d tensors filled on the ray device (no host-to-device copy)
+    iw, ih = (torch.full((), 1.0 / r, dtype=torch.float32, device=u.device)
+              for r in cfg.image_res)
     tc_u = (u + 0.5) * iw / render_scale
     tc_v = (v + 0.5) * ih / render_scale
     if not camera_is_moving:

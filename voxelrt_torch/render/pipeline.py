@@ -158,9 +158,13 @@ def accumulate(cfg, scene, params, state: RenderState, key,
     u, v, s_of_ray = wf if wf is not None else wavefront_constants(
         cfg, render_scale, dev)
     skeys, jit = sample_keys_of(key, k)
-    k0 = torch.tensor([sk[0] for sk in skeys], dtype=torch.int64, device=dev)
-    k1 = torch.tensor([sk[1] for sk in skeys], dtype=torch.int64, device=dev)
-    ju = jit.to(dev)
+    keys = torch.tensor([[sk[0] for sk in skeys], [sk[1] for sk in skeys]],
+                        dtype=torch.int64)
+    if dev.type == "cuda":
+        # from page-locked memory the upload does not wait for the card
+        keys, jit = keys.pin_memory(), jit.pin_memory()
+    k0, k1 = keys.to(dev, non_blocking=True)
+    ju = jit.to(dev, non_blocking=True)
     out = trace_sample(cfg, scene, params, u, v,
                        (k0[s_of_ray], k1[s_of_ray]),
                        (ju[s_of_ray, 0], ju[s_of_ray, 1]),

@@ -227,8 +227,9 @@ def _moving_taps(cfg, params, state_color, history, gbuffer, texcoord, rp,
     ``motion_resample='pallas'`` while the active region is within the
     kernel path's texel limit, as the JAX package's kernel path does;
     otherwise to the f32 gather path (_bilinear + _history_filter). The
-    choice never depends on the device. Returns (current, w_sum, hist,
-    extra_f)."""
+    choice never depends on the device. The kernel path hands the frame
+    buffers' active-region views to the kernel as they are: it packs
+    nothing here. Returns (current, w_sum, hist, extra_f)."""
     w, h = cfg.image_res
     aw = max(int(w * render_scale), 1)
     ah = max(int(h * render_scale), 1)
@@ -240,41 +241,12 @@ def _moving_taps(cfg, params, state_color, history, gbuffer, texcoord, rp,
             render_scale, moving=True, gate_depth=gate_depth, extra=extra)
         return current, w_sum, hist, extra_f
 
-    cur = state_color[:aw, :ah].reshape(-1, 3)
-    cur_packed = torch.stack([
-        rs.pack2_bf16(cur[:, 0], cur[:, 1]),
-        rs.pack2_bf16(cur[:, 2], torch.zeros_like(cur[:, 2])),
-    ])
-    hsrc = history[:aw, :ah].reshape(-1, 4)
-    hist_packed = torch.stack([
-        rs.pack2_bf16(hsrc[:, 0], hsrc[:, 1]),
-        rs.pack2_bf16(hsrc[:, 2], hsrc[:, 3]),
-    ])
-    pnsrc = gbuffer["prev_normals"][:aw, :ah].to(torch.float32)
-    pn_packed = rs.pack2_bf16(pnsrc[..., 0].reshape(-1),
-                              pnsrc[..., 1].reshape(-1))
-    pd_lin = None
-    if gate_depth:
-        pd_lin = linearize_depth(gbuffer["prev_depth"][:aw, :ah],
-                                 params.proj_inv).reshape(-1)
-    ex = extra[:aw, :ah].reshape(-1) if extra is not None else None
-
-    fxc = (texcoord[..., 0] * aw - 0.5).reshape(-1)
-    fyc = (texcoord[..., 1] * ah - 0.5).reshape(-1)
-    fxh = (rp[..., 0] * aw - 0.5).reshape(-1)
-    fyh = (rp[..., 1] * ah - 0.5).reshape(-1)
-    current, w_sum, hist, extra_f = temporal_taps(
-        cur_packed, hist_packed, pn_packed, pd_lin, ex,
-        fxc, fyc, fxh, fyh, center_depth.reshape(-1).contiguous(),
-        center_n.reshape(-1, 3).contiguous(),
-        ires_x=aw, ires_y=ah,
+    return temporal_taps(
+        state_color[:aw, :ah], history[:aw, :ah],
+        gbuffer["prev_normals"][:aw, :ah], gbuffer["prev_depth"][:aw, :ah],
+        params.proj_inv, extra[:aw, :ah] if extra is not None else None,
+        texcoord, rp, center_depth, center_n,
         catmullrom=cfg.motion_filter != "bilinear", gate_depth=gate_depth)
-    current = current.reshape(w, h, 3)
-    w_sum = w_sum.reshape(w, h)
-    hist = hist.reshape(w, h, 4)
-    if extra_f is not None:
-        extra_f = extra_f.reshape(w, h)
-    return current, w_sum, hist, extra_f
 
 
 def _center(cfg, params, gbuffer, render_scale):
