@@ -137,17 +137,25 @@ def test_in_kernel_nee_matches_explicit_dispatch_in_port(both):
 
 def test_per_ray_transmittance_goes_through_b3(both, monkeypatch):
     """'per_ray' fetches the transmittance per light direction at every
-    depth: B3's wrapper is called with a full wavefront of lanes."""
+    depth: B3's direction entries are called with a full wavefront of
+    lanes, and its texel-coordinate entry not at all."""
+    from voxelrt_torch.ops import texfetch
     from voxelrt_torch.sky import atmos
 
     lanes = []
-    orig = atmos.bilinear_fetch_packed
 
-    def spy(words, fx, fy, res):
-        lanes.append(fx.shape[0])
-        return orig(words, fx, fy, res)
+    def spy_on(name, d_at):
+        orig = getattr(atmos, name)
 
-    monkeypatch.setattr(atmos, "bilinear_fetch_packed", spy)
+        def spy(*args, **kw):
+            lanes.append(args[d_at].x.shape[0])
+            return orig(*args, **kw)
+
+        monkeypatch.setattr(atmos, name, spy)
+
+    spy_on("bilinear_fetch_dirs", 1)
+    spy_on("bilinear_fetch_dirs2", 3)
+    monkeypatch.setattr(texfetch, "bilinear_fetch_packed", None)
     tcfg = both[3]
     n = tcfg.image_res[0] * tcfg.image_res[1]
     _trace_port(both, tcfg)

@@ -38,6 +38,8 @@ from voxelrt_torch.ops.v3 import V3 as TV3
 from voxelrt_torch.render import pathtracer as tpt
 from voxelrt_torch.sky import atmos as tatmos
 
+from test_torch_b3_dirs import _dirs as _b3_dirs
+
 # One thread per test process: the suite runs several processes side by
 # side, and the tensors here are small.
 torch.set_num_threads(1)
@@ -378,4 +380,30 @@ def test_b2_b3_kernels_match_twins_on_card():
         np.float32)).to(dev)
     a = ttf.bilinear_fetch_packed(tw, fx, fy, res)
     b = ttf.bilinear_fetch_packed_plain(tw, fx, fy, res)
-    assert torch.allclose(a, b, rtol=1e-6, atol=0)
+    assert torch.equal(a.contiguous().view(torch.int32),
+                       b.contiguous().view(torch.int32))
+    # B3's direction entries, each kernel bit for bit against its twin, on
+    # strided column views with the edge-case directions first (the jitter's
+    # NaN and infinite uniforms among them), and on a one-lane view of a
+    # (1, 3) tensor
+    _, words_t = _packed_map(rng, res)
+    tt = torch.from_numpy(words_t.view(np.int32).copy()).to(dev)
+    d_np, u_np = _b3_dirs(rng, 100_000)
+    d = torch.from_numpy(d_np).to(dev)
+    u = torch.from_numpy(u_np).to(dev)
+    dv = TV3(d[:, 0], d[:, 1], d[:, 2])
+    uv = TV3(u[:, 0], u[:, 1], u[:, 2])
+    one = torch.tensor([[0.3, 0.8, -0.2]], device=dev)
+    d1 = TV3(one[..., 0], one[..., 1], one[..., 2])
+    pairs = [(ttf.bilinear_fetch_dirs(w, dv, res, u3),
+              ttf.bilinear_fetch_dirs_plain(w, dv, res, u3))
+             for w in (tw, tt) for u3 in (None, uv)]
+    pairs.append((ttf.bilinear_fetch_dirs(tt, d1, res),
+                  ttf.bilinear_fetch_dirs_plain(tt, d1, res)))
+    pairs += list(zip(
+        ttf.bilinear_fetch_dirs2(tw, tt, ttf.interleave_words(tw, tt), dv,
+                                 res, uv),
+        ttf.bilinear_fetch_dirs2_plain(tw, tt, dv, res, uv)))
+    for a, b in pairs:
+        assert torch.equal(a.contiguous().view(torch.int32),
+                           b.contiguous().view(torch.int32))

@@ -21,6 +21,7 @@ import torch
 
 from voxelrt_torch.ops.accel import PallasTables
 from voxelrt_torch.ops.dda_kernel import upload_tables
+from voxelrt_torch.ops.texfetch import interleave_words
 from voxelrt_torch.render.pathtracer import RenderParams, SceneData
 from voxelrt_torch.render.pipeline import RenderState
 from voxelrt_torch.sky.atmos import SkyData
@@ -36,18 +37,21 @@ def sky_from_jax_arrays(sky: dict, device) -> SkyData:
     """sky: mapping of the JAX package's SkyData fields as numpy arrays.
     The bf16-packed words are taken over when the mapping has them (the JAX
     package packs them only on its kernel path) and packed from the maps
-    otherwise; both give the same words."""
+    otherwise; both give the same words, and both interleave them into the
+    port's two-map table."""
     from voxelrt_torch.sky.atmos import make_sky
 
     if sky.get("packed_scatt") is None or sky.get("packed_trans") is None:
         return make_sky(sky["skybox_scattering"], sky["skybox_transmittance"],
                         sky["cloud_ambient"], sky["trans_lut"], device)
+    ps = _i32(sky["packed_scatt"], device)
+    pt = _i32(sky["packed_trans"], device)
     return SkyData(
         np.asarray(sky["skybox_scattering"], np.float32),
         np.asarray(sky["skybox_transmittance"], np.float32),
         np.asarray(sky["cloud_ambient"], np.float32),
-        np.asarray(sky["trans_lut"], np.float32),
-        _i32(sky["packed_scatt"], device), _i32(sky["packed_trans"], device))
+        np.asarray(sky["trans_lut"], np.float32), ps, pt,
+        interleave_words(ps, pt))
 
 
 def from_jax_arrays(scene: dict, params: dict, device):

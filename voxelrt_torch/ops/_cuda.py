@@ -37,8 +37,12 @@ SOURCES = ("dda", "texfetch", "resample", "probe")
 # B1's passes: "traverse" counts its march launches (one per dispatch),
 # "traverse_shadow" those of them in shadow mode, "traverse_compact" the
 # alive-list launches and "traverse_nee" the dense NEE shadow-ray launches.
+# B3's entries: "bilinear_fetch" (texel coordinates given),
+# "bilinear_fetch_dirs" (one map at directions) and "bilinear_fetch_dirs2"
+# (both maps at jittered directions).
 LAUNCHES = {"traverse": 0, "traverse_shadow": 0, "traverse_compact": 0,
             "traverse_nee": 0, "point_fetch": 0, "bilinear_fetch": 0,
+            "bilinear_fetch_dirs": 0, "bilinear_fetch_dirs2": 0,
             "temporal_taps": 0, "probe": 0}
 
 _libs: dict = {}
@@ -61,8 +65,13 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as fh:
-        h = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
+    """The library's path, keyed by its source, the headers beside it (any
+    source may include them) and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for f in (f"{name}.cu", *headers):
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            h.update(fh.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 

@@ -28,12 +28,14 @@ evaluated once into a 256x256 table and gathered, as a user cloud texture
 is.
 
 Fetches always take the kernel path of the JAX package: both skybox maps
-are bf16-packed (ops/texfetch.pack_rgb_bf16); the stochastic escape-sky
-fetch reads one texel per ray through kernel B2, the jittered 4-corner fetch
-(``sky_fetch='bilinear'``) and the transmittance lookup go through kernel
-B3. The JAX package's texel-sort routing of the escape fetch
-(atmos.py:692-747, 812-844) is a pure permutation of the fetches, so the
-port fetches in ray order with identical per-ray results.
+are bf16-packed (ops/texfetch.pack_rgb_bf16), and also interleaved into one
+16-byte-a-texel table; the stochastic escape-sky fetch reads one texel per
+ray through kernel B2, the jittered 4-corner fetch (``sky_fetch='bilinear'``)
+and the transmittance lookup go through kernel B3 at directions, which
+projects each direction onto the map in the kernel. The JAX package's
+texel-sort routing of the escape fetch (atmos.py:692-747, 812-844) is a pure
+permutation of the fetches, so the port fetches in ray order with identical
+per-ray results.
 """
 
 from __future__ import annotations
@@ -50,8 +52,10 @@ from voxelrt_torch import resolve_device
 from voxelrt_torch.ops import prng
 from voxelrt_torch.ops.sampling import (PI, dot, mix, normalize,
                                         sample_cone_oriented, saturate)
-from voxelrt_torch.ops.texfetch import (bilinear_fetch_packed,
-                                        pack_rgb_bf16, point_fetch_words,
+from voxelrt_torch.ops.texfetch import (bilinear_fetch_dirs,
+                                        bilinear_fetch_dirs2,
+                                        interleave_words, pack_rgb_bf16,
+                                        point_fetch_words, project_sky_soa,
                                         unpack_words_rgb_soa)
 from voxelrt_torch.ops.v3 import V3, map1, splat
 
@@ -104,6 +108,7 @@ class SkyData(NamedTuple):
     trans_lut: Any  # (256, 128, 3)
     packed_scatt: torch.Tensor | None = None  # int32 bf16-packed words
     packed_trans: torch.Tensor | None = None
+    packed_st: torch.Tensor | None = None  # both, interleave_words
 
 
 def _mat3vec(m, v: V3) -> V3:
@@ -647,18 +652,8 @@ def atmospheric_scattering(cfg, ray_origin: V3, ray_dir: V3, sun_dir, sun_col,
 
 
 # --- skybox parameterization (renderer/atmos.py:427-455) --------------------
-
-
-def project_sky_soa(d: V3, skybox_res):
-    """Hillaire EGSR 2020 equal-area-ish mapping -> (u, v) in [0,1]."""
-    fres = 1.0 / skybox_res
-    inv = torch.rsqrt(torch.clamp(d.x * d.x + d.z * d.z, min=1e-20))
-    azimuth = PI + torch.atan2(d.x * inv, -(d.z * inv))
-    elevation = PI * 0.5 - torch.acos(torch.clamp(d.y, -1.0, 1.0))
-    cx = azimuth / (2.0 * PI)
-    cy = 0.5 + 0.5 * torch.sign(elevation) * torch.sqrt(
-        2.0 / PI * torch.abs(elevation))
-    return cx * (1.0 - fres) + 0.5 * fres, cy * (1.0 - fres) + 0.5 * fres
+# project_sky_soa lives in ops/texfetch.py beside the kernel entries that
+# fold it in.
 
 
 def project_sky(d, skybox_res):
@@ -734,39 +729,26 @@ def sample_skybox(cfg, sky: SkyData, d: V3, u3: V3, want_trans=True):
     """renderer/atmos.py:94-115: the escape-sky fetch. ``sky_fetch`` picks
     the estimator: 'stochastic' (one corner through B2) or 'bilinear' (the
     reference's direction jitter and a 4-corner fetch of both maps through
-    B3), in ray order. Returns (scatt, trans) V3s, trans None when
-    ``want_trans`` is False."""
+    B3 at directions, both maps in one launch), in ray order. Returns
+    (scatt, trans) V3s, trans None when ``want_trans`` is False."""
     if cfg.sky_fetch == "stochastic":
         return _sample_skybox_stochastic(cfg, sky, d, u3, want_trans)
     res = cfg.skybox_res
-    jittered = normalize(d + u3 * 0.0015)
-    fx, fy = project_sky_soa(jittered, res)
-    fx = fx * res - 0.5
-    fy = fy * res - 0.5
-    return sample_skybox_packed_fetch(cfg, sky, fx, fy, want_trans)
-
-
-def _fetch_v3(packed, fx, fy, res) -> V3:
-    out = bilinear_fetch_packed(packed, fx.contiguous(), fy.contiguous(), res)
-    return V3(out[:, 0], out[:, 1], out[:, 2])
-
-
-def sample_skybox_packed_fetch(cfg, sky: SkyData, fx, fy, want_trans=True):
-    """The (fx, fy)-indexed bilinear fetch half of sample_skybox
-    (atmos.py:806-856), through kernel B3."""
-    res = cfg.skybox_res
-    scatt = _fetch_v3(sky.packed_scatt, fx, fy, res)
     if not want_trans:
-        return scatt, None
-    return scatt, _fetch_v3(sky.packed_trans, fx, fy, res)
+        return _v3(bilinear_fetch_dirs(sky.packed_scatt, d, res, u3)), None
+    scatt, trans = bilinear_fetch_dirs2(sky.packed_scatt, sky.packed_trans,
+                                        sky.packed_st, d, res, u3)
+    return _v3(scatt), _v3(trans)
+
+
+def _v3(rgb) -> V3:
+    return V3(rgb[:, 0], rgb[:, 1], rgb[:, 2])
 
 
 def sample_skybox_transmittance(cfg, sky: SkyData, d: V3) -> V3:
     """renderer/atmos.py:117-131: bilinear transmittance lookup through
-    kernel B3."""
-    res = cfg.skybox_res
-    su, sv = project_sky_soa(d, res)
-    return _fetch_v3(sky.packed_trans, su * res - 0.5, sv * res - 0.5, res)
+    kernel B3 at directions."""
+    return _v3(bilinear_fetch_dirs(sky.packed_trans, d, cfg.skybox_res))
 
 
 # --- the precompute, end to end ---------------------------------------------
@@ -807,9 +789,10 @@ def make_sky(scatt, trans, ambient, lut, device) -> SkyData:
         words = pack_rgb_bf16(np.asarray(img, np.float32)).view(np.int32)
         return torch.from_numpy(words.copy()).to(device)
 
+    ps, pt = packed(scatt), packed(trans)
     return SkyData(np.asarray(scatt, np.float32), np.asarray(trans, np.float32),
                    np.asarray(ambient, np.float32), np.asarray(lut, np.float32),
-                   packed(scatt), packed(trans))
+                   ps, pt, interleave_words(ps, pt))
 
 
 def _cache_paths(cfg, sun_dir, sun_col, cos_max, cache_dir, cloud_tex):
