@@ -3,8 +3,9 @@ each against its plain PyTorch twin at main-path shapes, and drive the port's
 paths at 1280x720: example6 (terrain, trees, physical sky + clouds, sun)
 through ``Scene.finish`` (still frames), ``Scene.run_frames`` (a moving
 camera path) and the browser viewer; a full-size sky precompute; every
-example scene; the explicit shadow dispatch with the bilinear sky fetch; and
-the loop-construct probe.
+example scene; the explicit shadow dispatch with the bilinear sky fetch;
+ReSTIR-PT with its spatial GRIS pass, the sorted route and the table draws;
+and the loop-construct probe.
 
     python3 chip_smoke.py
 
@@ -38,7 +39,18 @@ five B3-family launches a launch and no eager projection kernel, its rate
 beside the main path's, and small renders against the main path and the
 CPU; 15 P
 against its plain version for every variant, then ``tools/cuda_probe.py``'s
-table; 16 example7's sky computed on the card at the default knobs into an
+table; then, before phase 16 (after the sky precompute torch.profiler sees
+no kernel in this process), 18 example6 with ReSTIR-PT at the JAX defaults
+(32 taps, radius 24, one sample a launch): 16 spp counted, the last 8 for
+the steady rate, a profiled launch and GRIS pass, and B1's GRIS revalidation
+dispatch, B2's inline escape fetch at depth 1 and B3's call in the GRIS pass
+on packed directions against their twins by int32 bits; 19 the main path with
+``sort_rays=True`` and with ``rng_draws='table'``, each timed against the
+default route in turns, the sorted dispatches unsorted back held bitwise to
+B1 in ray order, and on each route a depth-1 B1 dispatch, B2 and B3 held to
+their twins; 20 example2 (8 taps, radius 6) and example6 with ReSTIR at
+128x72 on the card against the CPU path; 21
+``tools/restir_quality_torch.py`` on example6 at 1280x720; 16 example7's sky computed on the card at the default knobs into an
 empty temporary cache, then found there, and the same sky at test knobs on
 the card against the CPU; 17 every example through
 ``tools/run_example_torch.py``'s function at 16 spp; then the kernels JSON
@@ -81,6 +93,10 @@ N_MOVING, N_STILL = 24, 6
 B1_TWIN_SAMPLES = 4  # of a dispatch's 16 samples go through B1's slow twin
 EXAMPLE_SPP = 16
 EXAMPLE10_SKY_RES = 256  # its sky is computed at this size here, not 1024
+RESTIR_SPP = 16  # one sample a launch on the ReSTIR path; the second half
+# of them gives its steady rate
+ROUTE_SPP = 32  # a timed turn of phase 19: two 16-sample launches
+ROUTE_TWIN_RAYS = 230_400  # of a phase-19 dispatch go through B1's twin
 TINY_SKY = dict(skybox_res=128, sky_steps=8, sky_sun_samples=2,
                 sky_ms_samples=2, sky_ms_steps=2, cloud_steps=8,
                 cloud_sun_samples=2, cloud_shadow_steps=2,
@@ -354,6 +370,33 @@ def distinct_texels(fx, fy, res):
     return torch.unique(torch.cat(tex)).numel()
 
 
+def b2_check(words, wid, reps=10):
+    """One call of B2 against its twin, both on the card: every output word
+    compared. Times: events around ``reps`` calls of the wrapper, the card's
+    time a call, the twin's and ``pairs[idx]``'s (the one PyTorch call that
+    computes the same); the bound from the bytes (4 B index and 8 B out a
+    lane, 8 B a distinct texel)."""
+    import torch
+
+    from voxelrt_torch.ops import texfetch as tf
+
+    n = wid.shape[0]
+    a0, a1 = tf.point_fetch_words(words, wid)
+    p0, p1 = tf.point_fetch_words_plain(words, wid)
+    unequal = int((a0 != p0).sum().item()) + int((a1 != p1).sum().item())
+    pairs = words.view(-1, 2)
+    texels = torch.unique(wid).numel()
+    return dict(n=n, texels=texels, unequal=unequal, ok=unequal == 0,
+                ms_with_wrapper=cuda_ms(
+                    lambda: tf.point_fetch_words(words, wid), reps),
+                device_ms=device_ms(
+                    lambda: tf.point_fetch_words(words, wid), reps),
+                plain_ms=cuda_ms(
+                    lambda: tf.point_fetch_words_plain(words, wid), reps),
+                library_ms=cuda_ms(lambda: pairs[wid >> 1], reps),
+                bound_ms=(n * (4 + 8) + texels * 8) / HBM_BYTES_PER_S * 1e3)
+
+
 def b3_check(name, args, kw, reps=10):
     """One call of a B3 entry (``name``, as the wrapper is called in
     ops/texfetch.py) against its twin, both on the card: every output
@@ -530,6 +573,315 @@ def phase_shadow_path(main_steady_ms):
                 b3_per_launch=b3_per_launch, launch_eager_ops=ops.count,
                 explicit_vs_in_kernel_rmse=explicit,
                 card_vs_cpu_rmse=card_cpu)
+
+
+def device_events(p):
+    """(name, ms) of every event the card ran in the finished profiler
+    session ``p``, read from the raw trace: ``key_averages()`` builds the
+    whole event tree first, which takes tens of seconds at a ReSTIR
+    launch's 130,000 kernels."""
+    import torch
+
+    return [(e.name(), e.duration_ns() / 1e6)
+            for e in p.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA
+            and not e.is_user_annotation()]
+
+
+def profile_call(fn):
+    """Device time and kernel count of one call of ``fn``, which has run
+    before, from torch.profiler tracing the card's activity only, and the
+    traced call's wall ms. A session with no kernel events is taken again,
+    up to three times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as p:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = device_events(p)
+        if events:
+            break
+    return dict(device_ms=sum(t for _, t in events), kernels=len(events),
+                traced_wall_ms=wall_ms)
+
+
+def phase_restir(main_steady_ms):
+    """Phase 18: example6 at 1280x720 with ReSTIR-PT at the JAX defaults (32
+    taps, radius 24, one sample a launch), its shipped sky: RESTIR_SPP spp
+    through the renderer in two calls of half as many (the second gives the
+    steady rate) with the launch counters set to 0 just before and read just
+    after, a profiled launch and a profiled GRIS pass on the last launch's
+    inputs; then, on the last launch's recorded inputs, B1's GRIS
+    revalidation dispatch (shadow mode, no sun-open early-out, one ray a
+    pixel), B2's inline escape fetch at depth 1 and B3's call in
+    ``restir.shift_source`` (the stored NEE directions of every pixel, read
+    as strided views of a packed (n, 3) tensor) against their twins by
+    int32 bits."""
+    import torch
+
+    from voxelrt_torch.ops import _cuda
+    from voxelrt_torch.render import pathtracer as pt
+    from voxelrt_torch.render import restir as rs
+    from voxelrt_torch.sky import atmos
+
+    scene = build_example("example6", None, use_restir_pt=True)
+    r = scene.renderer
+    r.prepare_data()
+    cfg = r.cfg
+    if (cfg.restir_taps, cfg.restir_radius, cfg.samples_per_launch) != (
+            32, 24.0, 1):
+        fail("the ReSTIR path does not run at the JAX defaults")
+    w, h = cfg.image_res
+    depth, taps = cfg.max_ray_depth, cfg.restir_taps
+    # a launch: the primaries, a sun-shadow dispatch a depth, the bounces'
+    # closest hits, then the revalidation; B3: the per-ray NEE fetch a depth
+    # and the NEE sample's, then the GRIS pass's one on the stored NEE
+    # directions
+    per_launch_b1 = 2 * depth + 1
+    rec_b1 = Recorder(pt, "raytrace", keep=per_launch_b1)
+    rec_b2 = Recorder(atmos, "point_fetch_words", keep=2 * depth)
+    rec_b3 = Recorder(atmos, "bilinear_fetch_dirs", keep=1)
+    rec_gris = Recorder(rs, "spatial_gris", keep=1)
+    _cuda.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r.render(spp=RESTIR_SPP // 2)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    img = r.render(spp=RESTIR_SPP // 2)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    first_ms = (t2 - t0) / RESTIR_SPP * 1e3
+    steady_ms = (t2 - t1) / (RESTIR_SPP // 2) * 1e3
+    launches = dict(_cuda.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for rec in (rec_b1, rec_b2, rec_b3, rec_gris):
+        rec.restore()
+    if img.shape != (w, h, 3) or not np.isfinite(img).all() or \
+            float(img.std()) <= 1e-4:
+        fail("ReSTIR path: image is not finite, constant or misshaped")
+    n_launch = RESTIR_SPP
+    want = dict(traverse=per_launch_b1 * n_launch,
+                traverse_compact=per_launch_b1 * n_launch,
+                traverse_shadow=(depth + 1) * n_launch, traverse_nee=0,
+                point_fetch=2 * depth * n_launch, bilinear_fetch=0,
+                bilinear_fetch_dirs=(depth + 2) * n_launch,
+                bilinear_fetch_dirs2=0)
+    for k, v in want.items():
+        if launches[k] != v:
+            fail(f"ReSTIR path: {launches[k]} {k} launches, expected {v}")
+    # the GRIS pass by events before any profiling, as the launches were
+    gargs, gkw = rec_gris.calls[-1]
+    gris_ms = cuda_ms(lambda: rs.spatial_gris(*gargs, **gkw), 1)
+    prof = profile_launch(r, steady_ms)
+    gris_prof = profile_call(lambda: rs.spatial_gris(*gargs, **gkw))
+    print(f"ReSTIR path: example6 {w}x{h}, {taps} taps radius "
+          f"{cfg.restir_radius}, one sample a launch: per_spp_ms "
+          f"{first_ms:.3f} over the first {RESTIR_SPP} spp, {steady_ms:.3f} "
+          f"over the last {RESTIR_SPP // 2} (main path in this run: {main_steady_ms:.3f}), peak "
+          f"{peak_gb:.2f} GB, launches {launches}; profiled launch: "
+          f"{json.dumps(prof)}; GRIS pass: {gris_ms:.3f} ms by events, "
+          f"{json.dumps(gris_prof)}", flush=True)
+    if prof["by_group_ms"]["traverse_kernel"] <= 0.0:
+        fail("the profiled ReSTIR launch shows no B1 device time")
+    del gargs, gkw, rec_gris
+
+    calls = rec_b1.calls
+    args, kw = calls[-1]
+    if not (kw.get("any_hit") and not kw.get("use_sun_open")
+            and args[1].x.shape[0] == w * h):
+        fail("ReSTIR path: the last B1 dispatch is not the revalidation")
+    reval = b1_check(calls[-1], chunk=w * h)
+    print(f"B1 GRIS revalidation: {json.dumps(reval)}", flush=True)
+    if not reval["ok"]:
+        fail("B1's revalidation dispatch disagrees with its twin")
+    del rec_b1, calls, args, kw
+    # the depth-1 escape fetch's scattering words
+    b2 = b2_check(*rec_b2.calls[2][0])
+    print(f"B2 inline escape fetch at depth 1: {json.dumps(b2)}", flush=True)
+    if not b2["ok"] or b2["n"] != w * h:
+        fail("B2's inline fetch disagrees with its twin")
+    del rec_b2
+    (tab, d, res), kw = rec_b3.calls[-1]
+    if d.x.stride(0) != 3 or d.x.shape[0] != w * h:
+        fail("ReSTIR path: the last B3 call is not the GRIS pass's packed "
+             "one")
+    b3 = b3_check("bilinear_fetch_dirs", (tab, d, res), kw)
+    print(f"B3 in the GRIS pass, packed directions: {json.dumps(b3)}",
+          flush=True)
+    if not b3["ok"]:
+        fail("B3 in the GRIS pass is not bit-equal to its twin")
+    del rec_b3, tab, d, r, scene
+    torch.cuda.empty_cache()
+    return dict(first_per_spp_ms=first_ms, steady_per_spp_ms=steady_ms,
+                peak_gb=peak_gb, launches=launches, profile=prof,
+                gris_ms=gris_ms, gris_profile=gris_prof, b1=reval, b2=b2,
+                b3=b3)
+
+
+def phase_routes():
+    """Phase 19: example6's main path (16 samples a launch) with
+    ``sort_rays=True`` and with ``rng_draws='table'``, each against the
+    default route in turns (default, other, other, default), ROUTE_SPP spp a
+    turn after a warm-up launch whose launches are counted. The sorted
+    route's recorded dispatches, unsorted back, must equal bitwise the
+    dispatch that ``next_hit`` makes in ray order (its unsorted branch's
+    arguments); on each route one B1 dispatch at depth 1 (its first
+    ROUTE_TWIN_RAYS rays through the slow twin), B2's call and B3's
+    cone-centre call are held to their twins."""
+    import torch
+
+    from voxelrt_torch.ops import _cuda
+    from voxelrt_torch.ops import dda_kernel as dk
+    from voxelrt_torch.render import pathtracer as pt
+    from voxelrt_torch.sky import atmos
+
+    routes = {}
+    scenes = {}
+    for tag, over in (("default", {}), ("sort_rays", dict(sort_rays=True)),
+                      ("table", dict(rng_draws="table"))):
+        s = build_example("example6", None, samples_per_launch=MAIN_SPL,
+                          **over)
+        s.renderer.prepare_data()
+        scenes[tag] = s
+    for tag in ("sort_rays", "table"):
+        r = scenes[tag].renderer
+        rec_b1 = Recorder(pt, "raytrace", keep=8)
+        rec_sorted = Recorder(pt, "_trace_voxels_sorted", keep=7)
+        rec_b2 = Recorder(atmos, "point_fetch_words", keep=1)
+        rec_b3 = Recorder(atmos, "bilinear_fetch_dirs", keep=1)
+        _cuda.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        img = r.render(spp=MAIN_SPL)
+        torch.cuda.synchronize()
+        launches = dict(_cuda.LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        for rec in (rec_b1, rec_sorted, rec_b2, rec_b3):
+            rec.restore()
+        if not np.isfinite(img).all() or float(img.std()) <= 1e-4:
+            fail(f"{tag}: image is not finite or constant")
+        depth = r.cfg.max_ray_depth
+        sort = tag == "sort_rays"
+        want = dict(traverse=2 * depth if sort else depth,
+                    traverse_shadow=depth if sort else 0,
+                    traverse_nee=0 if sort else depth, point_fetch=1,
+                    bilinear_fetch_dirs=depth + 1)
+        for k, v in want.items():
+            if launches[k] != v:
+                fail(f"{tag}: {launches[k]} {k} launches, expected {v}")
+        out = dict(launches=launches, peak_gb=peak_gb)
+        if sort:
+            if len(rec_sorted.calls) != 2 * depth - 1:
+                fail("sort_rays: the sorted dispatches were not recorded")
+            bad = 0
+            for (cfg, tables, o, d, mask, shadow, sun), _ in rec_sorted.calls:
+                a = pt._trace_voxels_sorted(cfg, tables, o, d, mask, shadow,
+                                            sun)
+                # next_hit's unsorted branch, as it calls B1
+                b = dk.raytrace(tables, o, d, pt.EPS,
+                                torch.where(mask, pt.INF, 0.0),
+                                cfg.max_dda_advances, alive=mask,
+                                any_hit=shadow, fetch_colors=not shadow,
+                                use_sun_open=sun, sun_mode=cfg.dda_sun_mode,
+                                nee_src_open=cfg.dda_nee_src_open == "on")
+                bad += int(_b1_differs(a, b).sum().item())
+            out["unsorted_back_mismatched"] = bad
+            print(f"sort_rays: {len(rec_sorted.calls)} sorted dispatches of "
+                  f"the last launch, unsorted back against next_hit's "
+                  f"dispatch in ray order: "
+                  f"{bad} rays differ", flush=True)
+            if bad:
+                fail("the sorted route's outputs differ from ray order")
+        del rec_sorted
+        # depth 1's closest-hit dispatch: the third of a sorted launch's
+        # (after the primaries' and depth 0's shadow), the second of a
+        # table launch's
+        c = b1_check(rec_b1.calls[2 if sort else 1], chunk=ROUTE_TWIN_RAYS,
+                     max_chunks=1)
+        out["b1_depth1"] = c
+        out["b2"] = b2_check(*rec_b2.calls[-1][0])
+        out["b3"] = b3_check("bilinear_fetch_dirs", *rec_b3.calls[-1])
+        print(f"{tag}: launches {launches}, peak {peak_gb:.2f} GB; B1 depth "
+              f"1 {json.dumps(c)}; B2 {json.dumps(out['b2'])}; B3 "
+              f"{json.dumps(out['b3'])}", flush=True)
+        if not (c["ok"] and out["b2"]["ok"] and out["b3"]["ok"]):
+            fail(f"{tag}: a kernel call disagrees with its twin")
+        del rec_b1, rec_b2, rec_b3
+        routes[tag] = out
+    scenes["default"].renderer.render(spp=MAIN_SPL)  # its warm-up launch
+
+    def turn(tag):
+        r = scenes[tag].renderer
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r.render(spp=ROUTE_SPP)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / ROUTE_SPP * 1e3
+
+    ab = {}
+    for tag in ("sort_rays", "table"):
+        ab[tag] = [(t, turn(t)) for t in ("default", tag, tag, "default")]
+        print(f"A/B per_spp_ms, {tag} against the default route in turns: "
+              f"{ab[tag]}", flush=True)
+    del scenes
+    torch.cuda.empty_cache()
+    return dict(routes=routes, ab_per_spp_ms=ab)
+
+
+def phase_restir_small():
+    """Phase 20: example2 with ReSTIR at the golden test's 8 taps of radius
+    6 (example2_restir of tests/test_examples_golden.py, at 4 spp where the
+    golden takes 16: tests/test_torch_examples.py holds the CPU path at 16
+    against the golden) and example6 with ReSTIR at the defaults (1 spp), at
+    128x72, on the card and on the port's CPU path."""
+    rows = {}
+    for name, spp, over in (
+            ("example2", 4, dict(restir_taps=8, restir_radius=6.0)),
+            ("example6", 1, {})):
+        imgs = {}
+        for dev in ("cuda", "cpu"):
+            s = build_example(name, dev, (128, 72), use_restir_pt=True,
+                              **over)
+            imgs[dev] = s.finish(spp=spp, save=False)
+        rmse = float(np.sqrt(np.mean((imgs["cuda"] - imgs["cpu"]) ** 2)))
+        far = float((np.abs(imgs["cuda"] - imgs["cpu"]) > 1e-2).any(-1)
+                    .mean())
+        rows[name] = dict(spp=spp, rmse=rmse, share_beyond_1e_2=far)
+        print(f"small ReSTIR render ({name} 128x72, {spp} spp): card vs CPU "
+              f"path RMSE {rmse:.3e}, {far:.5f} of pixels beyond 1e-2",
+              flush=True)
+        # The two run the same operations and differ in float32 last bits,
+        # which a weighted selection can turn into another sample for a
+        # pixel: at most 0.1% of the pixels may differ beyond 1e-2 (a
+        # tenth of the tests' 1% share against the JAX package), and the
+        # RMSE stays below 5e-3, a third of the golden bar.
+        if not np.isfinite(imgs["cuda"]).all() or far > 1e-3 or \
+                not rmse < 5e-3:
+            fail(f"{name} with ReSTIR: the card disagrees with the CPU path")
+    return rows
+
+
+def phase_restir_quality():
+    """Phase 21: tools/restir_quality_torch.py on example6 at 1280x720 (a
+    256-spp reference, ReSTIR off and on at 1, 2 and 4 spp)."""
+    sys.path.insert(0, os.path.join(HERE, "tools"))
+    import restir_quality_torch as rq
+
+    rows = rq.quality_rows("example6", (1280, 720), 256, [1, 2, 4])
+    for row in rows:
+        print(f"ReSTIR quality, example6 1280x720: {json.dumps(row)}",
+              flush=True)
+        if not all(np.isfinite(v) for v in row.values()) or \
+                row["rmse_plain"] <= 0.0 or row["rmse_restir"] <= 0.0:
+            fail("ReSTIR quality: a row is not finite")
+    return rows
 
 
 def phase_probe():
@@ -811,9 +1163,8 @@ def profile_launch(r, launch_wall_ms, moving=False):
                                 moving, scale)
             torch.cuda.synchronize()
             traced_wall_ms = (time.perf_counter() - t0) * 1e3
-        events = [e for e in p.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        if any(k in e.key for e in events for k in B1_KERNELS):
+        events = device_events(p)
+        if any(k in name for name, _ in events for k in B1_KERNELS):
             break
     # the port's kernels by the names of their __global__ functions; B1's
     # three passes count as one group
@@ -824,24 +1175,25 @@ def profile_launch(r, launch_wall_ms, moving=False):
              "taps_kernel": ("taps_kernel",)}
     groups = dict.fromkeys([*names, "other"], 0.0)
     b1_passes = dict.fromkeys(B1_KERNELS, 0.0)
-    n_kernels = 0
-    top = []
     # Only the device's own events: a runtime entry on the host side would
     # repeat the device time of the kernels it launched.
-    for e in events:
-        t = e.self_device_time_total / 1e3
-        n_kernels += e.count
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for name, t in events:
+        by_name[name][0] += t
+        by_name[name][1] += 1
+    top = []
+    for name, (t, count) in by_name.items():
         g = next((k for k, frags in names.items()
-                  if any(f in e.key for f in frags)), "other")
+                  if any(f in name for f in frags)), "other")
         groups[g] += t
         for k in B1_KERNELS:
-            if k in e.key:
+            if k in name:
                 b1_passes[k] += t
-        top.append((t, e.count, e.key[:80]))
+        top.append((t, count, name[:80]))
     dev_ms = sum(groups.values())
     top.sort(reverse=True)
     return dict(wall_ms=launch_wall_ms, traced_wall_ms=traced_wall_ms,
-                device_ms=dev_ms, kernels=n_kernels,
+                device_ms=dev_ms, kernels=len(events),
                 idle_share=1.0 - dev_ms / launch_wall_ms,
                 by_group_ms=groups, b1_by_pass_ms=b1_passes,
                 top_kernels=[dict(ms=t, count=c, name=k) for t, c, k in top[:12]])
@@ -1139,21 +1491,9 @@ def main():
         fail("the profiled launch shows no B1 device time")
 
     # -- 7. B2 / B3 kernel vs twin on main-path inputs -------------------------
-    (words, wid), _ = rec_pt.calls[-1]
-    n2 = wid.shape[0]
-    a0, a1 = tf.point_fetch_words(words, wid)
-    p0, p1 = tf.point_fetch_words_plain(words, wid)
-    b2_err = max((a0 != p0).sum().item(), (a1 != p1).sum().item())
-    pairs = words.view(-1, 2)
-    b2_ms = cuda_ms(lambda: tf.point_fetch_words(words, wid), 10)
-    b2_dev = device_ms(lambda: tf.point_fetch_words(words, wid), 10)
-    b2_plain = cuda_ms(lambda: tf.point_fetch_words_plain(words, wid), 10)
-    b2_lib = cuda_ms(lambda: pairs[wid >> 1], 10)
-    touched = torch.unique(wid).numel()
-    b2_bound = (n2 * (4 + 8) + touched * 8) / HBM_BYTES_PER_S * 1e3
-    print(f"B2: n {n2}, mismatched words {b2_err}, {touched} distinct texels",
-          flush=True)
-    if b2_err:
+    b2 = b2_check(*rec_pt.calls[-1][0])
+    print(f"B2: {json.dumps(b2)}", flush=True)
+    if not b2["ok"]:
         fail("B2 disagrees with its twin")
 
     # B3's three entries, every output by its int32 bits: the main path's
@@ -1371,6 +1711,22 @@ def main():
     # -- 15. the probe -----------------------------------------------------------
     probe = phase_probe()
 
+    # -- 18-21. ReSTIR-PT, the sorted route and the table draws ----------------
+    # (before the sky precompute, after which torch.profiler sees no kernel)
+    phase_s = {}
+
+    def timed(tag, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[tag] = time.perf_counter() - t0
+        return out
+
+    restir = timed("18", phase_restir, steady_ms)
+    routes = timed("19", phase_routes)
+    restir_small = timed("20", phase_restir_small)
+    restir_quality = timed("21", phase_restir_quality)
+    print(f"phases 18-21, seconds each: {json.dumps(phase_s)}", flush=True)
+
     # -- 16. a full-size sky on the card; 17. every example ---------------------
     with tempfile.TemporaryDirectory() as sky_cache:
         sky = phase_sky(sky_cache)
@@ -1387,8 +1743,10 @@ def main():
     if "jax" in sys.modules or "voxelrt" in sys.modules:
         fail("the port imported jax or the voxelrt package")
 
-    b1_all = b1 + shadow["b1_closest"] + shadow["b1_shadow"]
-    b3_all = list(b3.values()) + shadow["b3"]
+    b1_all = b1 + shadow["b1_closest"] + shadow["b1_shadow"] + [
+        restir["b1"]] + [v["b1_depth1"] for v in routes["routes"].values()]
+    b3_all = list(b3.values()) + shadow["b3"] + [restir["b3"]] + [
+        v["b3"] for v in routes["routes"].values()]
     kernels = [
         dict(name="B1 traverse", route="cuda", source="voxelrt_torch/csrc/dda.cu",
              replaces="voxelrt/ops/dda_pallas.py:194",
@@ -1441,14 +1799,33 @@ def main():
              shadow_path_closest_bound_ms=[c["bound_ms"]
                                            for c in shadow["b1_closest"]],
              shadow_path_closest_bound_by=[c["bound_by"]
-                                           for c in shadow["b1_closest"]]),
+                                           for c in shadow["b1_closest"]],
+             restir_launches=restir["launches"]["traverse"],
+             restir_shadow_launches=restir["launches"]["traverse_shadow"],
+             restir_revalidation={k: restir["b1"][k] for k in (
+                 "n", "alive", "mismatched", "device_ms", "ms_with_wrapper",
+                 "plain_ms", "bound_ms", "bound_by")},
+             route_launches={k: v["launches"]["traverse"]
+                             for k, v in routes["routes"].items()},
+             route_depth1={k: {f: v["b1_depth1"][f] for f in (
+                 "n", "alive", "mismatched", "device_ms", "ms_with_wrapper",
+                 "plain_ms", "bound_ms", "bound_by")}
+                 for k, v in routes["routes"].items()},
+             sorted_unsorted_back_mismatched=routes["routes"]["sort_rays"][
+                 "unsorted_back_mismatched"]),
         dict(name="B2 point_fetch_words", route="cuda",
              source="voxelrt_torch/csrc/texfetch.cu",
              replaces="voxelrt/ops/texfetch.py:156",
-             launches=launches["point_fetch"], max_abs_err=float(b2_err),
-             ms=b2_dev, ms_with_wrapper=b2_ms, plain_ms=b2_plain,
-             bound_ms=b2_bound,
-             bound_by="bytes", library_ms=b2_lib, shape=f"{n2} indices"),
+             launches=launches["point_fetch"],
+             max_abs_err=float(b2["unequal"] + restir["b2"]["unequal"]),
+             ms=b2["device_ms"], ms_with_wrapper=b2["ms_with_wrapper"],
+             plain_ms=b2["plain_ms"], bound_ms=b2["bound_ms"],
+             bound_by="bytes", library_ms=b2["library_ms"],
+             shape=f"{b2['n']} indices",
+             restir_launches=restir["launches"]["point_fetch"],
+             restir_inline_fetch=restir["b2"],
+             route_launches={k: v["launches"]["point_fetch"]
+                             for k, v in routes["routes"].items()}),
         dict(name="B3 bilinear_fetch_dirs", route="cuda",
              source="voxelrt_torch/csrc/texfetch.cu",
              replaces="voxelrt/ops/texfetch.py:59",
@@ -1473,7 +1850,13 @@ def main():
              wavefront_ms_with_wrapper=[c["ms_with_wrapper"]
                                         for c in shadow["b3"][:-1]],
              wavefront_plain_ms=[c["plain_ms"] for c in shadow["b3"][:-1]],
-             wavefront_bound_ms=[c["bound_ms"] for c in shadow["b3"][:-1]]),
+             wavefront_bound_ms=[c["bound_ms"] for c in shadow["b3"][:-1]],
+             restir_launches=restir["launches"]["bilinear_fetch_dirs"],
+             restir_gris_call={k: restir["b3"][k] for k in (
+                 "n", "texels", "unequal", "device_ms", "ms_with_wrapper",
+                 "plain_ms", "bound_ms", "bound_by")},
+             route_launches={k: v["launches"]["bilinear_fetch_dirs"]
+                             for k, v in routes["routes"].items()}),
         dict(name="B3 bilinear_fetch_dirs2", route="cuda",
              source="voxelrt_torch/csrc/texfetch.cu",
              replaces="voxelrt/ops/texfetch.py:59",
@@ -1555,7 +1938,10 @@ def main():
                        small_path_far=far, small_path_rmse=srmse,
                        sky=sky, examples=examples,
                        example_launches=ex_launches, shadow_path=shadow,
-                       probe=probe),
+                       probe=probe, restir_path=restir, routes=routes,
+                       restir_small=restir_small,
+                       restir_quality=restir_quality,
+                       restir_phase_s=phase_s),
                   fh, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -174,3 +174,44 @@ def test_b1_kernel_matches_twin_on_card(share, sun_mode, src_open):
                 assert torch.equal(x, y), f
         for x, y in zip((*a.ipos, *a.normal), (*b.ipos, *b.normal)):
             assert torch.equal(x, y)
+
+
+# A camera ray of the port's render of tests/test_oracle_nee.py's scene (the
+# 3^3 cube in the grid's corner; launch 10, pixel (61, 47), sample 8), in
+# grid units: it starts on the grid's far z face, and its position rounds
+# past a cell face that its cell index has not crossed. The JAX kernel
+# steps no axis there (its exit test is ==) and stalls the ray for its 512
+# advances, returning a hit with a zero normal; B1 steps on (<=) and the
+# ray, which passes about 19 cells wide of the cube, misses.
+STALL_EYE = ("0x1.8ccccc0000000p+4", "0x1.6b851e0000000p+4",
+             "0x1.0000000000000p+5")
+STALL_DIR = ("-0x1.0f4e800000000p-4", "-0x1.78d2f40000000p-4",
+             "-0x1.fcb3140000000p-1")
+
+
+@pytest.mark.parametrize("device", [
+    "cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_b1_steps_past_a_rounded_face(device):
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: B1 is a CUDA kernel")
+    w = VoxelWorld(1.0 / 16.0, RES, 0.0)
+    ijk = np.stack(np.meshgrid(*[np.arange(3)] * 3, indexing="ij"),
+                   -1).reshape(-1, 3)
+    w.set_voxels(ijk, 50, np.array((0.95, 0.75, 0.35)))
+    tt = dk.upload_tables(taccel.build_pallas_tables(
+        w.material, w.device_arrays()["voxels_np"], RES), device)
+
+    def v3(hexes):
+        return V3(*(torch.tensor([float.fromhex(h)], dtype=torch.float32,
+                                 device=device) for h in hexes))
+
+    eye, d = v3(STALL_EYE), v3(STALL_DIR)
+    b = dk.raytrace_plain(tt, eye, d, 1e-6, float("inf"))
+    assert b.iters.item() < 512
+    assert b.distance.item() == float("inf")
+    if device == "cuda":
+        a = dk.raytrace(tt, eye, d, 1e-6, float("inf"))
+        for f in ("distance", "iters", "color_word", "active"):
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+        for x, y in zip((*a.ipos, *a.normal), (*b.ipos, *b.normal)):
+            assert torch.equal(x, y)

@@ -1,8 +1,9 @@
 """PyTorch port: the golden images of the example scenes, on the port.
 
-Every scene of tests/test_examples_golden.py except ``example2_restir``
-(ReSTIR-PT is not ported) is built from its unedited ``examples/*.py``
-through ``voxelrt_torch.app.examples.build_example``, rendered on the CPU
+Every scene of tests/test_examples_golden.py is built from its unedited
+``examples/*.py`` through ``voxelrt_torch.app.examples.build_example``
+(``example2_restir``: example2 with ReSTIR-PT on, 8 taps of radius 6, the
+golden test's settings), rendered on the CPU
 (the kernels' plain PyTorch versions) at 128x72, 16 spp, fixed seed, the
 sky scenes with the reduced ``TINY_SKY`` knobs and an empty temporary sky
 cache (so the port computes the sky itself), and held to
@@ -40,7 +41,11 @@ LARGE = ("example6", "example7", "example9", "example10")
 
 def check_example_golden(name, tmp_path):
     golden = read_png(os.path.join(GOLDEN_DIR, f"{name}.png"))
-    scene = build_example(name, "cpu", RES, sky_cache_dir=str(tmp_path))
+    over = {}
+    if name.endswith("_restir"):  # tests/test_examples_golden.py:60-61
+        over = dict(use_restir_pt=True, restir_taps=8, restir_radius=6.0)
+    scene = build_example(name.removesuffix("_restir"), "cpu", RES,
+                          sky_cache_dir=str(tmp_path), **over)
     if scene._use_physical_sky:
         import dataclasses
 
@@ -54,7 +59,8 @@ def check_example_golden(name, tmp_path):
     assert rmse < RMSE_TOL, f"{name}: RMSE {rmse:.4f} >= {RMSE_TOL}"
 
 
-@pytest.mark.parametrize("name", [n for n in NAMES if n not in LARGE])
+@pytest.mark.parametrize("name", [n for n in NAMES if n not in LARGE]
+                         + ["example2_restir"])
 def test_example_golden_on_port(name, tmp_path):
     check_example_golden(name, tmp_path)
 

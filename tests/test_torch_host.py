@@ -204,7 +204,8 @@ def test_port_imports_no_jax_or_voxelrt():
     files = [os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs
              if f.endswith(".py")] + [
         os.path.join(ROOT, "chip_smoke.py"),
-        os.path.join(ROOT, "tools", "camera_path_bench_torch.py")]
+        os.path.join(ROOT, "tools", "camera_path_bench_torch.py"),
+        os.path.join(ROOT, "tools", "restir_quality_torch.py")]
     assert len(files) > 15
     for path in files:
         for mod in _imports(path):
@@ -228,18 +229,3 @@ def test_no_cpu_fallback():
     with pytest.raises(RuntimeError, match="CUDA"):
         voxelrt_torch.resolve_device(None)
     assert voxelrt_torch.resolve_device("cpu").type == "cpu"
-
-
-def test_unported_features_raise():
-    from voxelrt_torch.render.pathtracer import check_supported
-
-    for over in (dict(use_restir_pt=True), dict(sort_rays=True),
-                 dict(rng_draws="table")):
-        with pytest.raises(NotImplementedError):
-            check_supported(tcfg.RenderConfig(**over))
-    # ported since: the explicit shadow dispatch, the bilinear sky fetch and
-    # the per-ray NEE transmittance (tests/test_torch_modes.py)
-    for over in (dict(), dict(nee_in_kernel=False),
-                 dict(use_physical_sky=True, sky_fetch="bilinear"),
-                 dict(use_physical_sky=True, nee_transmittance="per_ray")):
-        check_supported(tcfg.RenderConfig(**over))

@@ -2,7 +2,8 @@
 package: B1's shadow mode, the explicit sun-shadow dispatch
 (``nee_in_kernel=False``), the jittered 4-corner sky fetch
 (``sky_fetch='bilinear'``) and the per-direction NEE transmittance
-(``nee_transmittance='per_ray'``).
+(``nee_transmittance='per_ray'``), and that ReSTIR-PT, ``sort_rays`` and
+``rng_draws='table'`` render through ``Scene.finish``.
 
 Bars. The shadow twin against ``raytrace_pallas(any_hit=True,
 fetch_colors=False, interpret=True)``: the hit/miss verdict may differ on at
@@ -170,10 +171,19 @@ def test_per_ray_transmittance_goes_through_b3(both, monkeypatch):
 
 @pytest.mark.parametrize("over", [dict(use_restir_pt=True),
                                   dict(sort_rays=True),
-                                  dict(rng_draws="table")])
-def test_unported_modes_still_raise(both, over):
-    with pytest.raises(NotImplementedError):
-        tpt.check_supported(dataclasses.replace(both[3], **over))
+                                  dict(rng_draws="table")],
+                         ids=["restir", "sort_rays", "table_draws"])
+def test_off_default_modes_render_through_scene(over):
+    """ReSTIR-PT, the sorted route and the table draws render through the
+    public entry point on the CPU: a finite, non-constant image."""
+    from voxelrt_torch.app.examples import build_example
+
+    scene = build_example("example2", "cpu", (64, 36), **over)
+    img = scene.finish(spp=2, save=False)
+    assert img.shape == (64, 36, 3) and np.isfinite(img).all()
+    assert img.std() > 1e-3
+    cfg = scene.renderer.cfg
+    assert all(getattr(cfg, k) == v for k, v in over.items())
 
 
 @pytest.mark.cuda

@@ -149,7 +149,7 @@ def test_moving_accumulate_step(both):
     outside = np.ones(cfg.image_res, bool)
     outside[:AW, :AH] = False
     for f in dataclasses.fields(ts):
-        if f.name in ("spp", "frame"):
+        if f.name in ("spp", "frame", "reservoirs"):
             continue
         a = getattr(ts, f.name).numpy()
         b = js[f.name]

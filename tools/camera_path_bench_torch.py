@@ -6,8 +6,8 @@ Runs a scripted orbit+dolly path through an example scene with the
 reference's motion policy active (render_scale 0.5, 50-frame accumulation
 cap while moving — scene.py:209-228) and reports ms/frame. It imports
 ``voxelrt_torch`` only: the example module is imported with its
-``_common.make_scene`` replaced by the port's ``Scene``. ``--restir`` raises
-NotImplementedError until ReSTIR-PT is ported.
+``_common.make_scene`` replaced by the port's ``Scene``. ``--restir`` runs
+the path with ReSTIR-PT's spatial GRIS pass.
 
     python tools/camera_path_bench_torch.py [--scene example1] [--frames 24]
                                             [--res 640x360] [--device cpu]
@@ -73,7 +73,6 @@ def main():
     args = ap.parse_args()
     w, h = (int(x) for x in args.res.split("x"))
 
-    from voxelrt_torch.render.pathtracer import check_supported
     from voxelrt_torch.utils.profiling import FrameStats, sync
 
     sys.argv = ["bench"]
@@ -87,7 +86,6 @@ def main():
             over[k_] = v_
     scene.config = dataclasses.replace(
         scene.config, image_res=(w, h), use_restir_pt=args.restir, **over)
-    check_supported(scene.config)
     dev = scene.device
 
     if args.pipelined:

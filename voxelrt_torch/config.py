@@ -2,9 +2,12 @@
 
 Same fields, same defaults and the same ``dda_march_unroll`` resolution as
 the JAX package, so a config maps one to one. The port always runs the JAX
-package's KERNEL path (``use_pallas_dda=True`` semantics, in-kernel NEE,
-bf16-packed sky words), on the card through the hand-written CUDA kernels
-and on the CPU through their plain PyTorch twins. Fields that only choose a
+package's KERNEL path (``use_pallas_dda=True`` semantics, bf16-packed sky
+words), on the card through the hand-written CUDA kernels and on the CPU
+through their plain PyTorch twins, and takes the JAX package's route for
+every mode of ``trace_sample``: ReSTIR-PT (``use_restir_pt``,
+``restir_taps``, ``restir_radius``), the sorted traversal route
+(``sort_rays``) and the threefry draw table (``rng_draws='table'``). Fields that only choose a
 backend or schedule TPU work are kept for the one-to-one mapping and are
 IGNORED by the port: ``use_pallas_dda``, ``pallas_interpret``,
 ``dda_block_rows``, ``dda_queue_depth``, ``dda_refill_every``,
@@ -101,8 +104,10 @@ class RenderConfig:
     # Sort incoherent (bounce/shadow) rays by origin-cell morton code before
     # dispatching the traversal kernel, so that terminated lanes compact to
     # the back and live blocks become spatially tight. Default OFF in the
-    # JAX package. The port reads it: True raises NotImplementedError
-    # (sorted routing is not ported yet).
+    # JAX package. The port reads it: True routes every non-primary
+    # dispatch through render/pathtracer._trace_voxels_sorted (one sort of
+    # the routing keys, B1 on the sorted rays, the outputs scattered back)
+    # and turns in-kernel NEE off, as the JAX package does.
     sort_rays: bool = False
 
     # Rows of rays per block of the JAX package's traversal kernel (a
@@ -185,8 +190,9 @@ class RenderConfig:
     # JCGT 2020), with no (n_draws, N) table. 'table' is the JAX package's
     # vmapped-threefry draw table (the per-pixel BASE key stays threefry
     # fold_in(sample key, pixel id) either way, so both modes are
-    # shard-invariant counter-based RNG); the port raises
-    # NotImplementedError for it.
+    # shard-invariant counter-based RNG); the port builds that table on the
+    # rays' device (render/pathtracer.draw_table), bit-equal to the JAX
+    # package's.
     rng_draws: str = "pcg3d"  # 'pcg3d' | 'table'
 
     # Deferred-escape skybox fetch routing of the JAX package: True sorts

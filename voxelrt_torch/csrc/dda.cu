@@ -281,7 +281,9 @@ __device__ void step(const Tables& T, const Ray& r, State& s, bool sun) {
       moving = moving && !hit_now && in_far;
       if (k == RESOLVE_STEPS || !moving) break;
       float mint_abs = fmaxf(fminf(fminf(tmx, tmy), tmz), rt);
-      bool ax = tmx == mint_abs, ay = tmy == mint_abs, az = tmz == mint_abs;
+      // <= and not ==: an axis whose crossing rounding put behind the ray
+      // steps too (see march below)
+      bool ax = tmx <= mint_abs, ay = tmy <= mint_abs, az = tmz <= mint_abs;
       float anx = (ax ? 1.0f : 0.0f) * r.sx;
       float any_ = (ay ? 1.0f : 0.0f) * r.sy;
       float anz = (az ? 1.0f : 0.0f) * r.sz;
@@ -337,9 +339,14 @@ __device__ void step(const Tables& T, const Ray& r, State& s, bool sun) {
     float ex = clipf(floorf(fx + mint * r.dx), 0.0f, extx - 1.0f);
     float ey = clipf(floorf(fy + mint * r.dy), 0.0f, exty - 1.0f);
     float ez = clipf(floorf(fz + mint * r.dz), 0.0f, extz - 1.0f);
-    o_nx = (txx == mint ? 1.0f : 0.0f) * r.sx;
-    o_ny = (tyy == mint ? 1.0f : 0.0f) * r.sy;
-    o_nz = (tzz == mint ? 1.0f : 0.0f) * r.sz;
+    // An axis steps when its exit is the nearest, or lies behind the ray
+    // (mint clamped to 0): the ray's position has then rounded past that
+    // face while its cell index has not, and with == no axis would step and
+    // the ray would stall there until its advance budget ran out. Where
+    // every exit lies ahead, <= and == agree.
+    o_nx = (txx <= mint ? 1.0f : 0.0f) * r.sx;
+    o_ny = (tyy <= mint ? 1.0f : 0.0f) * r.sy;
+    o_nz = (tzz <= mint ? 1.0f : 0.0f) * r.sz;
     o_px = (int)((lox + ex) + o_nx);
     o_py = (int)((loy + ey) + o_ny);
     o_pz = (int)((loz + ez) + o_nz);

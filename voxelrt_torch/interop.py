@@ -4,7 +4,8 @@
 ``RenderParams`` as numpy arrays (``np.asarray`` of each JAX array; this
 module never imports JAX) and returns the port's ``SceneData`` and
 ``RenderParams`` on ``device``; ``render_state_from_jax`` does the same for
-a ``RenderState``; ``sky_from_jax_arrays`` for a ``SkyData`` alone. Tests
+a ``RenderState`` (its ReSTIR reservoirs included), ``reservoir_from_jax``
+for one reservoir dict, ``sky_from_jax_arrays`` for a ``SkyData`` alone. Tests
 use them to feed both packages the same inputs, the sky included (each
 package computes its own otherwise, equal only up to float32 rounding and
 the cloud texels that flip with it). In the other direction a sky travels as
@@ -87,13 +88,33 @@ def from_jax_arrays(scene: dict, params: dict, device):
     return sd, RenderParams(**p)
 
 
+def reservoir_from_jax(res: dict, device) -> dict:
+    """res: mapping of one of the JAX package's reservoir dicts (an input
+    reservoir image or a storage slot) as numpy arrays. The u32
+    ``rc_mat_info`` words become int64, every other field keeps its dtype.
+    Returns the port's reservoir dict on ``device``."""
+    out = {}
+    for k, a in res.items():
+        a = np.asarray(a)
+        if k == "rc_mat_info":
+            a = a.astype(np.int64)
+        out[k] = torch.tensor(a, device=device)
+    return out
+
+
 def render_state_from_jax(state: dict, device) -> RenderState:
     """state: mapping of the JAX package's RenderState fields as numpy
-    arrays (``reservoirs`` is not carried). The u32 ``gbuff_mat_id`` words
-    become int64, the f16 normals stay f16, ``spp`` and ``frame`` become
-    ints. Returns the port's RenderState on ``device``."""
+    arrays, ``reservoirs`` a pair of reservoir dicts or None. The u32
+    ``gbuff_mat_id`` and ``rc_mat_info`` words become int64, the f16
+    normals stay f16, ``spp`` and ``frame`` become ints. Returns the port's
+    RenderState on ``device``."""
     out = {}
     for f in dataclasses.fields(RenderState):
+        if f.name == "reservoirs":
+            slots = state.get("reservoirs")
+            out[f.name] = None if slots is None else tuple(
+                reservoir_from_jax(slot, device) for slot in slots)
+            continue
         a = np.asarray(state[f.name])
         if f.name in ("spp", "frame"):
             out[f.name] = int(a)

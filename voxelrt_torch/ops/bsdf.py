@@ -37,6 +37,7 @@ from voxelrt_torch.ops.v3 import V3, vcross, vnormalize, vwhere
 LOBE_DIFFUSE = 0
 LOBE_SPEC_REFL = 1
 LOBE_CLEARC = 2
+LOBE_ALL = 9
 
 
 class MatFeatures(NamedTuple):
@@ -222,6 +223,30 @@ def lobe_probabilities(mat, feat=ALL_FEATURES):
     return diffuse_w / w_sum, specular_w / w_sum, clearcoat_w / w_sum
 
 
+def disney_evaluate_split(mat, v, n, l, tang, bitang, feat=ALL_FEATURES):
+    """renderer/bsdf.py:138-172 — (diffuse, specular) with the
+    upper-hemisphere gate."""
+    q = _half_vectors(v, n, l, tang, bitang)
+    valid = (q["n_dot_l"] > 0.0) & (q["n_dot_v"] > 0.0)
+    bsdf_d = _metallic_scale(
+        disney_diffuse(mat, q["n_dot_l"], q["n_dot_v"], q["l_dot_h"], feat),
+        mat, feat)
+    bsdf_s = disney_specular(
+        mat, q["n_dot_l"], q["n_dot_v"], q["l_dot_h"], q["n_dot_h"],
+        q["h_dot_x"], q["h_dot_y"], q["l_dot_x"], q["l_dot_y"],
+        q["v_dot_x"], q["v_dot_y"], feat)
+    if feat.clearcoat:
+        bsdf_s = bsdf_s + disney_clearcoat(
+            mat, q["n_dot_l"], q["n_dot_v"], q["n_dot_h"], q["l_dot_h"])
+    return vwhere(valid, bsdf_d, 0.0), vwhere(valid, bsdf_s, 0.0)
+
+
+def disney_evaluate(mat, v, n, l, tang, bitang, feat=ALL_FEATURES):
+    """renderer/bsdf.py:174-177."""
+    d, s = disney_evaluate_split(mat, v, n, l, tang, bitang, feat)
+    return d + s
+
+
 def disney_eval_split_pdf(mat, v, n, l, tang, bitang, feat=ALL_FEATURES):
     """Fused (diffuse, specular, mixture pdf) — equal to the reference's
     evaluate_split + pdf_disney (renderer/bsdf.py:138-172, 383-393), sharing
@@ -260,9 +285,87 @@ def disney_eval_split_pdf(mat, v, n, l, tang, bitang, feat=ALL_FEATURES):
     return vwhere(valid, bsdf_d, 0.0), vwhere(valid, bsdf_s, 0.0), pdf
 
 
+def disney_evaluate_lobewise_split(mat, v, n, l, tang, bitang, lobe_id,
+                                   specular_mult=1.0):
+    """renderer/bsdf.py:306-344 — (diffuse, specular) of the lobe
+    ``lobe_id`` (a per-ray int tensor; LOBE_ALL: every lobe)."""
+    q = _half_vectors(v, n, l, tang, bitang)
+    valid = (q["n_dot_l"] > 0.0) & (q["n_dot_v"] > 0.0)
+    want_d = (lobe_id == LOBE_DIFFUSE) | (lobe_id == LOBE_ALL)
+    want_s = (lobe_id == LOBE_SPEC_REFL) | (lobe_id == LOBE_ALL)
+    want_c = (lobe_id == LOBE_CLEARC) | (lobe_id == LOBE_ALL)
+    bsdf_d = vwhere(
+        want_d & valid,
+        disney_diffuse(mat, q["n_dot_l"], q["n_dot_v"], q["l_dot_h"])
+        * (1.0 - mat.metallic), 0.0)
+    spec = disney_specular(
+        mat, q["n_dot_l"], q["n_dot_v"], q["l_dot_h"], q["n_dot_h"],
+        q["h_dot_x"], q["h_dot_y"], q["l_dot_x"], q["l_dot_y"],
+        q["v_dot_x"], q["v_dot_y"])
+    cc = disney_clearcoat(mat, q["n_dot_l"], q["n_dot_v"], q["n_dot_h"],
+                          q["l_dot_h"])
+    bsdf_s = vwhere(want_s & valid, spec * specular_mult, 0.0)
+    bsdf_s = bsdf_s + torch.where(want_c & valid, cc * specular_mult, 0.0)
+    return bsdf_d, bsdf_s
+
+
+def disney_evaluate_lobewise(mat, v, n, l, tang, bitang, lobe_id,
+                             specular_mult=1.0):
+    """renderer/bsdf.py:346-349."""
+    d, s = disney_evaluate_lobewise_split(mat, v, n, l, tang, bitang, lobe_id,
+                                          specular_mult)
+    return d + s
+
+
+def pdf_diffuse(mat, n, l):
+    """renderer/bsdf.py:179-182."""
+    return saturate(dot(l, n)) / PI
+
+
+def pdf_clearcoat(mat, v, n, l):
+    """renderer/bsdf.py:191-199."""
+    alpha = mix(0.1, 0.001, mat.clearcoat_gloss)
+    h = normalize(v + l)
+    n_dot_h = torch.abs(dot(n, h))
+    v_dot_h = dot(v, h)
+    d = gtr1(n_dot_h, alpha)
+    return d * n_dot_h / torch.where(v_dot_h == 0.0, 1e-20, 4.0 * v_dot_h)
+
+
+def pdf_specular(mat, v, n, l, tang, bitang):
+    """renderer/bsdf.py:254-277 — anisotropic GGX VNDF pdf."""
+    ax, ay = _aniso_alphas(mat)
+    h = normalize(v + l)
+    n_dot_l = torch.abs(dot(n, l))
+    d = gtr2_anisotropic(dot(n, h), dot(h, tang), dot(h, bitang), ax, ay)
+    g = smith_g_ggx_aniso(dot(n, v), dot(v, tang), dot(v, bitang), ax, ay)
+    return g * torch.abs(dot(l, h)) * d / torch.clamp(n_dot_l, min=1e-20)
+
+
 def _scrub_pdf(pdf):
     """NaN/inf guard -> 1.0 (renderer/bsdf.py:378-380, 455-456)."""
     return torch.where(torch.isfinite(pdf), pdf, 1.0)
+
+
+def pdf_disney_lobewise(mat, v, n, l, tang, bitang, lobe_id):
+    """renderer/bsdf.py:365-381 — the pdf of the lobe ``lobe_id`` times its
+    weight (diffuse, specular, else clearcoat), NaN/inf scrubbed to 1."""
+    dw, sw, cw = lobe_probabilities(mat)
+    pdf = torch.where(
+        lobe_id == LOBE_DIFFUSE, pdf_diffuse(mat, n, l) * dw,
+        torch.where(lobe_id == LOBE_SPEC_REFL,
+                    pdf_specular(mat, v, n, l, tang, bitang) * sw,
+                    pdf_clearcoat(mat, v, n, l) * cw))
+    return _scrub_pdf(pdf)
+
+
+def pdf_disney(mat, v, n, l, tang, bitang):
+    """renderer/bsdf.py:383-393 — the full mixture pdf (no NaN guard
+    upstream)."""
+    dw, sw, cw = lobe_probabilities(mat)
+    return (pdf_diffuse(mat, n, l) * dw
+            + pdf_specular(mat, v, n, l, tang, bitang) * sw
+            + pdf_clearcoat(mat, v, n, l) * cw)
 
 
 def _ggx_vndf_sample(v, n, tang, bitang, ax, ay, u):

@@ -14,6 +14,14 @@ rays, one thread per ray, with the NEE shadow rays gathered into a second
 list and traced in a second launch; the plain twin below as a masked loop
 over the still-active rays.
 
+One departure from the JAX kernel, in both versions: where a ray's position
+has rounded past a cell face that its cell index has not crossed, the exit
+through that face lies behind the ray; the JAX kernel then steps no axis and
+the ray stalls in place until its advance budget runs out (it comes back as
+a hit with a zero normal and colour 0 at its last position, which the
+renderer shades into NaN). Here such an axis steps too (``<=`` where the
+JAX kernel tests ``==``); where every exit lies ahead the two agree.
+
 The sun-open certificate (``DeviceTables.sun_open_words``, one bit per 4^3
 cell: the whole sun cone escapes the grid from anywhere in the cell) retires
 shadow rays early, with the JAX kernel's verdicts:
@@ -227,7 +235,7 @@ def _resolve(T, r, s, px, py, pz, nx, ny, nz, w2, cw, cb):
             break
         mint_abs = torch.maximum(
             torch.minimum(torch.minimum(tm[0], tm[1]), tm[2]), rt)
-        axes = [tc == mint_abs for tc in tm]
+        axes = [tc <= mint_abs for tc in tm]
         an = [a.to(torch.float32) * r[sg] for a, sg in
               zip(axes, ("sx", "sy", "sz"))]
         rt = _sel(moving, mint_abs, rt)
@@ -272,7 +280,10 @@ def _march(T, r, s, px, py, pz, w2):
     e = [torch.clamp(torch.floor(fc + mint * r[dd]), min=0.0)
          for fc, dd in zip(f, ("dx", "dy", "dz"))]
     e = [torch.minimum(ec, xc - 1.0) for ec, xc in zip(e, ext)]
-    an = [(tc == mint).to(torch.float32) * r[sg] for tc, sg in
+    # <= and not ==: an exit behind the ray (mint clamped to 0) steps too,
+    # else a ray whose position rounded past a face its cell index has not
+    # crossed stalls (csrc/dda.cu, march step)
+    an = [(tc <= mint).to(torch.float32) * r[sg] for tc, sg in
           zip(tt, ("sx", "sy", "sz"))]
     nap = [((lc + ec) + ac).to(torch.int64) for lc, ec, ac in zip(lo, e, an)]
     return s["t"] + mint, nap, an

@@ -1,6 +1,8 @@
-"""Bit-packing codecs (octahedral normals, material words) — the PyTorch
-port of the parts of voxelrt/ops/packing.py that the render path uses: the
-SoA forms for the wavefront, the packed-image forms for the temporal filters.
+"""Bit-packing codecs (octahedral normals, material words, arbitrary-width
+u32 packs) — the PyTorch port of the parts of voxelrt/ops/packing.py that
+the render path uses: the SoA forms for the wavefront, the packed-image forms
+for the temporal filters and the ReSTIR storage reservoir
+(render/restir.py).
 
 The G-buffer stores octahedral f16 normals whose quantization is part of the
 reference image (renderer/pathtracer.py:113,404). Packed material words are
@@ -80,3 +82,30 @@ def decode_material_word(enc):
     albedo f32 (..., 3))."""
     mat_id, albedo = decode_material_word_soa(enc)
     return mat_id, torch.stack(list(albedo), dim=-1)
+
+
+def encode_u32_arb(data, sizes):
+    """renderer/math_utils.py:249-255 — four floats in [0, 1] (the last axis
+    of ``data``) into one u32 word (int64 tensor); ``sizes``: the four bit
+    widths."""
+    out = torch.zeros(data.shape[:-1], dtype=torch.int64, device=data.device)
+    shift = 0
+    for i, bits in enumerate(sizes):
+        q = (data[..., i] * float(2.0 ** bits - 1.0) + 0.5).to(torch.int64)
+        out = out | ((q << shift) & 0xFFFFFFFF)
+        shift += bits
+    return out
+
+
+def decode_u32_arb(enc, sizes):
+    """renderer/math_utils.py:257-263 — inverse of encode_u32_arb: (...,
+    4) float32."""
+    enc = enc.to(torch.int64) & 0xFFFFFFFF
+    parts = []
+    shift = 0
+    for bits in sizes:
+        maxv = 2 ** bits - 1
+        parts.append(((enc >> shift) & maxv).to(torch.float32)
+                     / float(maxv))
+        shift += bits
+    return torch.stack(parts, dim=-1)

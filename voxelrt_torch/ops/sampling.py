@@ -39,6 +39,11 @@ def normalize(v: V3, eps: float = 1e-20) -> V3:
     return vnormalize(v, eps)
 
 
+def is_vec_zero(v: V3):
+    """renderer/math_utils.py:18-19 — |v|^2 < 1e-7."""
+    return vdot(v, v) < 1e-7
+
+
 def luminance(c: V3):
     """renderer/math_utils.py:151-153."""
     return c.x * 0.2125 + c.y * 0.7154 + c.z * 0.0721
@@ -154,6 +159,23 @@ def pcg3d(a, b, c):
     b = (b + _mul32(c, a)) & M32
     c = (c + _mul32(a, b)) & M32
     return a, b, c
+
+
+def hash3(x, y, z):
+    """renderer/math_utils.py:217-229 — integer hash of three u32 values
+    (int64 tensors or ints in [0, 2**32)), as an int64 tensor holding the
+    u32 result, bit-exact with the JAX package's uint32 form."""
+    x = x & M32
+    x = (x + (x >> 11)) & M32
+    x = (x ^ (x << 7)) & M32
+    x = (x + y) & M32
+    x = (x ^ (x << 3)) & M32
+    x = (x + (z ^ (x >> 14))) & M32
+    x = (x ^ (x << 6)) & M32
+    x = (x + (x >> 15)) & M32
+    x = (x ^ (x << 5)) & M32
+    x = (x + (x >> 12)) & M32
+    return (x ^ (x << 9)) & M32
 
 
 def u32_to_uniform(bits):

@@ -70,9 +70,11 @@ def _apply_mat4_soa(m, v: V3, w):
 
 
 def screen_to_view_soa(u, v, depth, inv_proj) -> V3:
-    """screen_to_view on (u, v) screen-coordinate components."""
-    ndc = V3(u * 2.0 - 1.0, v * 2.0 - 1.0,
-             torch.full_like(u, depth) * 2.0 - 1.0)
+    """screen_to_view on (u, v) screen-coordinate components; ``depth`` is
+    a number or a tensor shaped like them."""
+    if not isinstance(depth, torch.Tensor):
+        depth = torch.full_like(u, depth)
+    ndc = V3(u * 2.0 - 1.0, v * 2.0 - 1.0, depth * 2.0 - 1.0)
     px, py, pz, pw = _apply_mat4_soa(inv_proj, ndc, 1.0)
     return V3(px / pw, py / pw, pz / pw)
 

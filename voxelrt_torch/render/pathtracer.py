@@ -29,8 +29,18 @@ Divergence from the reference: an escaped first bounce adds a large finite
 reflection distance instead of the reference's inf (which poisons its
 reflection-depth G-buffer with NaNs, renderer/pathtracer.py:414-417,543-547).
 
-Not ported yet (they raise NotImplementedError): ReSTIR-PT, sorted ray
-routing (``sort_rays``) and the table draws (``rng_draws='table'``).
+Every mode of the JAX package's ``trace_sample`` runs here:
+
+* ``use_restir_pt``: the sky is fetched inline at every depth (its rc
+  bookkeeping needs per-depth values), the NEE transmittance per ray, no
+  in-kernel NEE; the sample's input reservoir (the rc vertex, the NEE
+  sample's WRS) comes back in ``out["reservoir"]`` for the spatial GRIS
+  pass (render/restir.py);
+* ``sort_rays``: the non-primary dispatches go to B1 in (alive,
+  origin-cell morton, direction octant) order and come back in ray order
+  (``_trace_voxels_sorted``); in-kernel NEE is off;
+* ``rng_draws='table'``: a (8·depth+1)-slot threefry table per ray instead
+  of the PCG3D slots.
 """
 
 from __future__ import annotations
@@ -50,13 +60,15 @@ from voxelrt_torch.ops.bsdf import (
     sample_disney,
 )
 from voxelrt_torch.ops.dda_kernel import nee_params, raytrace
-from voxelrt_torch.ops.prng import fold_in
+from voxelrt_torch.ops.prng import fold_in, uniform
 from voxelrt_torch.ops.sampling import (
     EPS,
     INF,
     cone_sample_pdf,
     dot,
+    is_vec_zero,
     length,
+    luminance,
     make_orthonormal_basis,
     normalize,
     pcg3d,
@@ -148,13 +160,13 @@ def march_unroll_of(cfg) -> int:
     return u if isinstance(u, int) else 3
 
 
-def check_supported(cfg):
-    """Raise for the off-default features this slice does not port."""
-    for flag, what in ((cfg.use_restir_pt, "ReSTIR-PT"),
-                       (cfg.sort_rays, "sorted ray routing"),
-                       (cfg.rng_draws != "pcg3d", "rng_draws='table'")):
-        if flag:
-            raise NotImplementedError(f"{what} is not ported yet")
+def draw_table(cfg, kd):
+    """The table draws (``rng_draws='table'``, pathtracer.py:577-581): the
+    8·max_ray_depth+1 threefry uniforms of each ray's key ``kd`` = (k0,
+    k1), drawn on the rays' device, as an (n_draws, N) float32 tensor whose
+    row ``slot`` is that slot's draw for every ray."""
+    n_draws = 8 * cfg.max_ray_depth + 1
+    return uniform(kd, (n_draws,), kd[0].device).t().contiguous()
 
 
 def firefly_filter(v: V3, cfg) -> V3:
@@ -193,8 +205,65 @@ class Hit(NamedTuple):
     iters: torch.Tensor  # (N,) int32 traversal advance count
 
 
+def _morton3(x, y, z):
+    """Morton code of three cell coordinates below 256 (the JAX package's
+    ops/dda_pallas.py:_morton3)."""
+    def part1by2(v):
+        v = (v | (v << 8)) & 0x0300F00F
+        v = (v | (v << 4)) & 0x030C30C3
+        return (v | (v << 2)) & 0x09249249
+
+    return part1by2(x) | (part1by2(y) << 1) | (part1by2(z) << 2)
+
+
+SORT_DEAD = 0x7FFFFFFF  # routing key of a masked-off ray: sorts last
+
+
+def routing_key(cfg, origin: V3, d: V3, mask):
+    """The sorted route's key of each ray (pathtracer.py:219-231): the
+    morton code of its origin's 4^3 cell, shifted left 3, or'ed with its
+    direction octant; SORT_DEAD for a masked-off ray."""
+    r2 = cfg.grid_res // 4
+    cell = [torch.clamp(c.to(torch.int32) >> 2, 0, r2 - 1) for c in origin]
+    octant = ((d.x > 0).to(torch.int32) + 2 * (d.y > 0).to(torch.int32)
+              + 4 * (d.z > 0).to(torch.int32))
+    key = (_morton3(*cell) << 3) | octant
+    return torch.where(mask, key, SORT_DEAD)
+
+
+def _trace_voxels_sorted(cfg, tables, origin: V3, d: V3, mask, shadow_ray,
+                         sun_shadow):
+    """B1 on the rays in (alive, origin-cell morton, direction octant)
+    order, the outputs scattered back to ray order (pathtracer.py:200-275):
+    one sort of the routing keys, origin and direction gathered, dead rays
+    traced with tmax 0 and marked dead, so they come back as the unsorted
+    route's canonical miss. The order among equal keys is not part of the
+    result: every per-ray output is the unsorted route's."""
+    key = routing_key(cfg, origin, d, mask)
+    skey, sidx = torch.sort(key)
+    alive = skey != SORT_DEAD
+    so = V3(*(c[sidx] for c in origin))
+    sd = V3(*(c[sidx] for c in d))
+    stmax = torch.where(alive, INF, 0.0)
+    tr = raytrace(tables, so, sd, EPS, stmax, cfg.max_dda_advances,
+                  alive=alive, any_hit=shadow_ray,
+                  fetch_colors=not shadow_ray, use_sun_open=sun_shadow)
+
+    def unsort(x):
+        if x is None:
+            return None
+        if isinstance(x, V3):
+            return V3(*(unsort(c) for c in x))
+        out = torch.empty_like(x)
+        out[sidx] = x
+        return out
+
+    return tr._replace(**{f: unsort(getattr(tr, f)) for f in (
+        "distance", "ipos", "normal", "iters", "color_word", "active")})
+
+
 def next_hit(cfg, scene, params, pos: V3, d: V3, mask, shadow_ray=False,
-             sun_shadow=False, nee_u=None):
+             sun_shadow=False, nee_u=None, coherent=False):
     """Closest hit of floor plane + voxel grid (renderer/pathtracer.py:218-244).
 
     mask: rays to trace; the others are dead lanes of the traversal kernel.
@@ -206,7 +275,9 @@ def next_hit(cfg, scene, params, pos: V3, d: V3, mask, shadow_ray=False,
     ``nee_u``: (u0, u1) cone uniforms enabling in-kernel NEE; returns
     (Hit, nee_visible) then, a plain Hit otherwise. The floor crossing is
     the kernel's alternative shadow origin; floor OCCLUSION of the shadow
-    ray stays a closed-form check in the caller."""
+    ray stays a closed-form check in the caller. ``coherent`` marks rays
+    already in screen-tile order (the primaries), which skip the sorted
+    route of ``sort_rays``."""
     n = pos.x.shape[0]
     dev = pos.x.device
     closest = torch.full((n,), INF, dtype=torch.float32, device=dev)
@@ -249,11 +320,17 @@ def next_hit(cfg, scene, params, pos: V3, d: V3, mask, shadow_ray=False,
         nee = nee_params(nee_u, alt_t, ldir, tang_l, bitang_l,
                          params.light_cone_cos_theta_max, EPS * inv_size,
                          EPS, dev)
-    tr = raytrace(scene.tables, eye_scaled, d, EPS, tmax,
-                  cfg.max_dda_advances, nee=nee, alive=mask,
-                  any_hit=shadow_ray, fetch_colors=not shadow_ray,
-                  use_sun_open=sun_shadow, sun_mode=cfg.dda_sun_mode,
-                  nee_src_open=cfg.dda_nee_src_open == "on")
+    if cfg.sort_rays and not coherent:
+        if nee is not None:
+            raise ValueError("the sorted route has no in-kernel NEE")
+        tr = _trace_voxels_sorted(cfg, scene.tables, eye_scaled, d, mask,
+                                  shadow_ray, sun_shadow)
+    else:
+        tr = raytrace(scene.tables, eye_scaled, d, EPS, tmax,
+                      cfg.max_dda_advances, nee=nee, alive=mask,
+                      any_hit=shadow_ray, fetch_colors=not shadow_ray,
+                      use_sun_open=sun_shadow, sun_mode=cfg.dda_sun_mode,
+                      nee_src_open=cfg.dda_nee_src_open == "on")
     vox_dist = tr.distance * cfg.voxel_dx
     vox_ok = mask & (vox_dist < closest)
     closest = torch.where(vox_ok, vox_dist, closest)
@@ -334,8 +411,11 @@ def _light_dir_1(params) -> V3:
 def nee_transmittance(cfg, scene, params, light_dir: V3) -> V3:
     """Sun transmittance for a cone-sampled NEE direction set:
     'center' evaluates the skybox once at the cone centre (a 1-lane B3
-    fetch broadcast over the wavefront), 'per_ray' per direction."""
-    if cfg.nee_transmittance == "center" and cfg.use_physical_sky:
+    fetch broadcast over the wavefront), 'per_ray' per direction. ReSTIR
+    always fetches per ray: its GRIS shift re-evaluates stored NEE terms
+    and must see the same transmittance function."""
+    if (cfg.nee_transmittance == "center" and cfg.use_physical_sky
+            and not cfg.use_restir_pt):
         return sky_transmittance(cfg, scene, _light_dir_1(params))
     return sky_transmittance(cfg, scene, light_dir)
 
@@ -347,10 +427,12 @@ def trace_sample(cfg, scene, params, u, v, sample_keys, jitter_u,
 
     ``sample_keys``: the (k0, k1) sample key of each ray (python ints or
     int64 tensors); ``jitter_u``: the (u0, u1) TAA jitter uniforms of each
-    ray's sample. Returns a dict of per-ray outputs."""
-    check_supported(cfg)
+    ray's sample. Returns a dict of per-ray outputs; with ``use_restir_pt``
+    also ``reservoir``, the input reservoir of each ray as a dict of packed
+    tensors (the render/restir.py boundary)."""
     n = u.shape[0]
     dev = u.device
+    restir = cfg.use_restir_pt
 
     def zf():
         return torch.zeros((n,), dtype=torch.float32, device=dev)
@@ -376,11 +458,16 @@ def trace_sample(cfg, scene, params, u, v, sample_keys, jitter_u,
     first_bounce_invpdf = torch.ones((n,), dtype=torch.float32, device=dev)
     first_nee_diffuse = v3.zeros(n, dev)
     first_nee_specular = v3.zeros(n, dev)
+    first_bounce_dir = v3.zeros(n, dev)
+    first_light_sample_dir = v3.zeros(n, dev)
     first_light_sample_bsdf_pdf = torch.ones((n,), dtype=torch.float32,
                                              device=dev)
     first_bounce_reflection_dist = zf()
     is_sky_ray = torch.zeros((n,), dtype=torch.bool, device=dev)
 
+    # The escape sky is deferred to one fetch after the bounce loop, except
+    # under ReSTIR, whose rc bookkeeping needs the sky at every depth.
+    defer_sky = not restir
     esc_dir = V3(zf(), torch.ones((n,), dtype=torch.float32, device=dev), zf())
     esc_u3 = v3.zeros(n, dev)
     esc_weight = v3.zeros(n, dev)
@@ -391,13 +478,30 @@ def trace_sample(cfg, scene, params, u, v, sample_keys, jitter_u,
     # (global pixel id, sample key, draw slot).
     pid = u.to(torch.int64) * cfg.image_res[1] + v.to(torch.int64)
     kd = fold_in(sample_keys, pid)
-    draws = Pcg3dDraws(kd[0], kd[1])
+    if cfg.rng_draws == "pcg3d":
+        draws = Pcg3dDraws(kd[0], kd[1])
+    else:
+        draws = draw_table(cfg, kd)
+    del kd
+
+    # ReSTIR-PT input-sample state (renderer/pathtracer.py:336-347,
+    # 381-391): the rc vertex and what arrives there.
+    if restir:
+        rc = dict(rc_pos=v3.zeros(n, dev), rc_normal=v3.zeros(n, dev),
+                  rc_incident_dir=v3.zeros(n, dev),
+                  rc_incident_L=v3.zeros(n, dev), rc_NEE_dir=v3.zeros(n, dev),
+                  rc_mat_info=torch.zeros((n,), dtype=torch.int64,
+                                          device=dev))
+        throughput_after_rc = v3.ones(n, dev)
+        rc_bounce_lobe_id = torch.zeros((n,), dtype=torch.int32, device=dev)
 
     use_nee = cfg.use_directional_light
     # In-kernel NEE: the traversal kernel itself traces each surface's
     # sun-cone shadow ray, replacing the separate any-hit dispatch per depth
-    # (pathtracer.py:600-602, with use_pallas_dda read as True).
-    use_knee = cfg.nee_in_kernel and use_nee
+    # (pathtracer.py:600-602, with use_pallas_dda read as True). ReSTIR
+    # keeps the explicit dispatches, and the sorted route has no NEE.
+    use_knee = (cfg.nee_in_kernel and use_nee and not restir
+                and not cfg.sort_rays)
     for depth in range(cfg.max_ray_depth):
         base = 8 * depth
         u_nee = (draws[base], draws[base + 1])
@@ -406,9 +510,10 @@ def trace_sample(cfg, scene, params, u, v, sample_keys, jitter_u,
 
         if use_knee:
             hit, knee_vis = next_hit(cfg, scene, params, pos, d, tracing,
-                                     nee_u=u_nee)
+                                     nee_u=u_nee, coherent=depth == 0)
         else:
-            hit = next_hit(cfg, scene, params, pos, d, tracing)
+            hit = next_hit(cfg, scene, params, pos, d, tracing,
+                           coherent=depth == 0)
         hit_mat = fetch_material(scene.mat_params, hit.mat_id, hit.albedo)
         finite_closest = torch.isfinite(hit.closest)
         hit_pos = pos + d * torch.where(finite_closest, hit.closest, 0.0)
@@ -430,24 +535,57 @@ def trace_sample(cfg, scene, params, u, v, sample_keys, jitter_u,
             first_bounce_reflection_dist = first_bounce_reflection_dist + \
                 torch.where(add_refl, torch.where(
                     finite_closest, hit.closest, SKY_REFLECTION_DIST), 0.0)
+            if restir:
+                # rc vertex capture (renderer/pathtracer.py:409-414).
+                rc["rc_pos"] = vwhere(tracing, hit_pos, rc["rc_pos"])
+                rc["rc_normal"] = vwhere(tracing, hit.normal, rc["rc_normal"])
+                rc["rc_mat_info"] = torch.where(
+                    tracing, packing.encode_material_soa(hit.mat_id,
+                                                         hit.albedo),
+                    rc["rc_mat_info"])
+        elif depth == 2 and restir:
+            # renderer/pathtracer.py:416-417.
+            rc["rc_incident_dir"] = vwhere(tracing, d, rc["rc_incident_dir"])
 
         surf = tracing & ~hit.hit_light & finite_closest
         term_sky = tracing & ~hit.hit_light & ~finite_closest
         term_light = tracing & hit.hit_light & finite_closest
 
-        # --- miss -> sky, deferred: a ray escapes at most once, so the sky
-        # is evaluated once after the bounce loop.
-        esc_dir = vwhere(term_sky, d, esc_dir)
-        esc_u3 = vwhere(term_sky, u_sky, esc_u3)
-        esc_weight = vwhere(term_sky, throughput, esc_weight)
+        # --- miss -> sky (renderer/pathtracer.py:499-517)
+        if defer_sky:
+            # a ray escapes at most once: record the escape here, fetch the
+            # sky once after the bounce loop
+            esc_dir = vwhere(term_sky, d, esc_dir)
+            esc_u3 = vwhere(term_sky, u_sky, esc_u3)
+            esc_weight = vwhere(term_sky, throughput, esc_weight)
+        else:
+            sky_scatt, sky_trans = sample_sky(cfg, scene, params, d, u_sky)
+            sky_emission = _sky_emission(cfg, params, d, sky_scatt,
+                                         sky_trans)
+            contrib = contrib + vwhere(term_sky, throughput * sky_emission,
+                                       0.0)
         if depth == 0:
             is_sky_ray = term_sky
             primary_pos = vwhere(term_sky, 0.0, primary_pos)
+        if restir and depth == 1:
+            # Escape at the rc vertex: rc_pos becomes a direction and
+            # rc_incident_L the sky colour (renderer/pathtracer.py:512-514).
+            rc["rc_pos"] = vwhere(term_sky, d, rc["rc_pos"])
+            rc["rc_incident_L"] = vwhere(term_sky, sky_emission,
+                                         rc["rc_incident_L"])
+        if restir and depth >= 2:
+            rc["rc_incident_L"] = rc["rc_incident_L"] + vwhere(
+                term_sky,
+                firefly_filter(throughput_after_rc * sky_emission, cfg), 0.0)
 
         # --- emissive voxel/floor hit terminates (pathtracer.py:518-525)
         if depth > 0:
             contrib = contrib + vwhere(term_light, throughput * hit.albedo,
                                        0.0)
+        if restir and depth >= 2:
+            rc["rc_incident_L"] = rc["rc_incident_L"] + vwhere(
+                term_light,
+                firefly_filter(throughput_after_rc * hit.albedo, cfg), 0.0)
 
         tracing = surf
 
@@ -506,6 +644,14 @@ def trace_sample(cfg, scene, params, u, v, sample_keys, jitter_u,
                 contrib = contrib + vwhere(
                     visible,
                     firefly_filter(throughput * (nee_d + nee_s), cfg), 0.0)
+            if restir and depth == 1:
+                # renderer/pathtracer.py:454-455.
+                rc["rc_NEE_dir"] = vwhere(visible, light_dir,
+                                          rc["rc_NEE_dir"])
+            if restir and depth >= 2:
+                # renderer/pathtracer.py:475-476 (no firefly clamp here).
+                rc["rc_incident_L"] = rc["rc_incident_L"] + vwhere(
+                    visible, throughput_after_rc * (nee_d + nee_s), 0.0)
 
         # --- next bounce (renderer/pathtracer.py:479-497); none after the
         # last depth.
@@ -520,6 +666,9 @@ def trace_sample(cfg, scene, params, u, v, sample_keys, jitter_u,
                                               first_bounce_invpdf)
             first_bounce_lobe_id = torch.where(surf, lobe,
                                                first_bounce_lobe_id)
+            first_bounce_dir = vwhere(surf, new_d, first_bounce_dir)
+            if use_nee:
+                first_light_sample_dir = vwhere(surf, light_dir, 0.0)
         else:
             bounce_weight = bounce_weight / pdf
             bsdf_light_pdf = cone_sample_pdf(
@@ -527,22 +676,33 @@ def trace_sample(cfg, scene, params, u, v, sample_keys, jitter_u,
                 dot(v3.splat(params.light_direction), new_d))
             bounce_weight = bounce_weight * power_heuristic(
                 pdf, nee_visible * bsdf_light_pdf)
+        if restir and depth == 1:
+            rc_bounce_lobe_id = torch.where(surf, lobe, rc_bounce_lobe_id)
+        if restir and depth >= 2:
+            throughput_after_rc = vwhere(
+                surf, throughput_after_rc * bounce_weight,
+                throughput_after_rc)
         throughput = vwhere(surf, throughput * bounce_weight, throughput)
         d = vwhere(surf, new_d, d)
         pos = vwhere(surf, spos, pos)
+    # the NEE sample's WRS uniform, the slot after the bounce loop's
+    u_wrs = draws[8 * cfg.max_ray_depth] if restir and use_nee else None
+    del draws
 
-    # --- deferred escape sky (single fetch for the whole bounce loop) -------
-    esc_any = v3.any_nonzero(esc_weight)
-    # the cone-centre transmittance stands in for the per-ray map inside
-    # the sun disk (config.nee_transmittance='center')
-    cheap_sun_trans = (cfg.nee_transmittance == "center"
-                       and cfg.use_physical_sky)
-    sky_scatt, sky_trans = sample_sky(cfg, scene, params, esc_dir, esc_u3,
-                                      want_trans=not cheap_sun_trans)
-    if sky_trans is None:
-        sky_trans = sky_transmittance(cfg, scene, _light_dir_1(params))
-    sky_emission = _sky_emission(cfg, params, esc_dir, sky_scatt, sky_trans)
-    contrib = contrib + vwhere(esc_any, esc_weight * sky_emission, 0.0)
+    if defer_sky:
+        # --- deferred escape sky (single fetch for the whole bounce loop)
+        esc_any = v3.any_nonzero(esc_weight)
+        # the cone-centre transmittance stands in for the per-ray map inside
+        # the sun disk (config.nee_transmittance='center')
+        cheap_sun_trans = (cfg.nee_transmittance == "center"
+                           and cfg.use_physical_sky)
+        sky_scatt, sky_trans = sample_sky(cfg, scene, params, esc_dir, esc_u3,
+                                          want_trans=not cheap_sun_trans)
+        if sky_trans is None:
+            sky_trans = sky_transmittance(cfg, scene, _light_dir_1(params))
+        sky_emission = _sky_emission(cfg, params, esc_dir, sky_scatt,
+                                     sky_trans)
+        contrib = contrib + vwhere(esc_any, esc_weight * sky_emission, 0.0)
 
     # --- epilogue (renderer/pathtracer.py:535-632) ---------------------------
     primary_pos_view = world_to_view_soa(primary_pos, params.view)
@@ -559,13 +719,77 @@ def trace_sample(cfg, scene, params, u, v, sample_keys, jitter_u,
     # Primary-vertex MIS (renderer/pathtracer.py:556-605).
     nee_d_out = first_nee_diffuse
     nee_s_out = first_nee_specular
+    chose_nee = torch.zeros((n,), dtype=torch.bool, device=dev)
     if use_nee:
         light_pdf_one = cone_sample_pdf(params.light_cone_cos_theta_max, 1.0)
         light_sample_mis = power_heuristic(light_pdf_one,
                                            first_light_sample_bsdf_pdf)
         apply = ~is_sky_ray
-        nee_d_out = vwhere(apply, nee_d_out * light_sample_mis, nee_d_out)
-        nee_s_out = vwhere(apply, nee_s_out * light_sample_mis, nee_s_out)
+        if not restir:
+            nee_d_out = vwhere(apply, nee_d_out * light_sample_mis, nee_d_out)
+            nee_s_out = vwhere(apply, nee_s_out * light_sample_mis, nee_s_out)
+
+    if restir:
+        # The input reservoir (renderer/pathtracer.py:549-607): the BSDF
+        # path sample through its rc vertex, merged by WRS with the primary
+        # vertex's NEE sample when there is a sun, then finalized; packed
+        # at the render/restir.py boundary.
+        z = dict(rc)
+        z["F"] = contrib
+        z["lobes"] = rc_bounce_lobe_id * 10 + first_bounce_lobe_id
+        dir_x1x2 = z["rc_pos"] - primary_pos
+        denom = torch.abs(dot(normalize(dir_x1x2), z["rc_normal"]))
+        z["cached_jacobian_term"] = dot(dir_x1x2, dir_x1x2) / torch.clamp(
+            denom, min=1e-20)
+        res_m = torch.ones((n,), dtype=torch.float32, device=dev)
+        nee_f = first_nee_diffuse + first_nee_specular
+        if use_nee:
+            bsdf_pdf0 = 1.0 / first_bounce_invpdf
+            bsdf_light_pdf0 = cone_sample_pdf(
+                params.light_cone_cos_theta_max,
+                dot(v3.splat(params.light_direction), first_bounce_dir))
+            bsdf_light_pdf0 = torch.where(is_vec_zero(nee_f), 0.0,
+                                          bsdf_light_pdf0)
+            bsdf_mis = power_heuristic(bsdf_pdf0, bsdf_light_pdf0)
+            res_weight = bsdf_mis * luminance(z["F"]) * first_bounce_invpdf
+            light_sample_weight = light_sample_mis * luminance(nee_f)
+            # WRS input of the NEE sample (renderer/pathtracer.py:588-598,
+            # reservoir.py:65-74).
+            new_weight = res_weight + light_sample_weight
+            sel = (light_sample_weight > 0.0) & (
+                u_wrs * new_weight <= light_sample_weight)
+            sel = sel & apply
+            strans0 = nee_transmittance(cfg, scene, params,
+                                        first_light_sample_dir)
+            zero3 = v3.zeros(n, dev)
+            light_z = dict(
+                F=nee_f, rc_pos=first_light_sample_dir, rc_normal=zero3,
+                rc_incident_dir=zero3,
+                rc_incident_L=strans0 * cfg.light_weight
+                * v3.splat(params.light_color),
+                rc_NEE_dir=zero3, rc_mat_info=0, cached_jacobian_term=1.0,
+                lobes=99)
+            for k, lz in light_z.items():
+                if isinstance(z[k], V3):
+                    z[k] = vwhere(sel, lz, z[k])
+                else:
+                    # a fill on the device, not a host-to-device copy
+                    z[k] = torch.where(sel, torch.full(
+                        (), lz, dtype=z[k].dtype, device=dev), z[k])
+            res_weight = torch.where(apply & (light_sample_weight > 0.0),
+                                     new_weight, res_weight)
+            res_m = torch.where(apply, 2.0, res_m)  # input_sample: M += 1
+            chose_nee = sel
+        else:
+            res_weight = luminance(z["F"]) * first_bounce_invpdf
+        # finalize_without_M (reservoir.py:96-102) for non-sky rays.
+        p_hat_final = luminance(z["F"])
+        fin = torch.where(p_hat_final < 1e-6, 0.0,
+                          res_weight / torch.clamp(p_hat_final, min=1e-20))
+        reservoir = {k: (v3.stack(x) if isinstance(x, V3) else x)
+                     for k, x in z.items()}
+        reservoir["M"] = res_m
+        reservoir["weight"] = torch.where(is_sky_ray, 1.0, fin)
 
     prim_mat_id, prim_albedo_dec = packing.decode_material_word_soa(
         primary_mat_info)
@@ -573,17 +797,27 @@ def trace_sample(cfg, scene, params, u, v, sample_keys, jitter_u,
 
     lobe_diff = first_bounce_lobe_id == LOBE_DIFFUSE
     lobe_spec = first_bounce_lobe_id == LOBE_SPEC_REFL
-    diffuse = vwhere(lobe_diff, contrib * first_bounce_invpdf + emission,
-                     0.0) + nee_d_out
-    specular = vwhere(lobe_spec, contrib * first_bounce_invpdf, 0.0) + \
-        nee_s_out
+    if not restir:
+        diffuse = vwhere(lobe_diff, contrib * first_bounce_invpdf + emission,
+                         0.0) + nee_d_out
+        specular = vwhere(lobe_spec, contrib * first_bounce_invpdf, 0.0) + \
+            nee_s_out
+    else:
+        # renderer/pathtracer.py:620-626: the chosen input sample's
+        # integrand, unweighted (the GRIS pass applies the weight).
+        res_f = v3.load(reservoir["F"])
+        diffuse = vwhere(chose_nee, first_nee_diffuse,
+                         vwhere(lobe_diff, res_f, 0.0))
+        specular = vwhere(chose_nee, first_nee_specular,
+                          vwhere(lobe_spec, res_f, 0.0))
 
-    if camera_is_moving:
+    if camera_is_moving and not restir:
         # De-modulate albedo so temporal filtering works on irradiance
-        # (renderer/pathtracer.py:628-631).
+        # (renderer/pathtracer.py:628-631; under ReSTIR the GRIS pass
+        # demodulates).
         diffuse = diffuse / v3.vmaximum(primary_albedo, 1e-2)
 
-    return dict(
+    out = dict(
         diffuse=diffuse,
         specular=specular,
         inside=inside,
@@ -593,5 +827,7 @@ def trace_sample(cfg, scene, params, u, v, sample_keys, jitter_u,
         gbuff_position=primary_pos,
         gbuff_mat_id=primary_mat_info,
     )
-
+    if restir:
+        out["reservoir"] = reservoir
+    return out
 

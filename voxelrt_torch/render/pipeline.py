@@ -2,8 +2,8 @@
 of voxelrt/render/pipeline.py), for still and for moving frames.
 
 All frame-persistent buffers live in an explicit :class:`RenderState`;
-``accumulate`` mirrors renderer/pathtracer.py:1310-1319 (render -> temporal
-prepass -> temporal filter -> specular temporal filter). With
+``accumulate`` mirrors renderer/pathtracer.py:1310-1319 (render -> [spatial
+GRIS] -> temporal prepass -> temporal filter -> specular temporal filter). With
 ``render_scale`` below 1 only the active top-left region is traced and
 filtered; the rest of every buffer keeps its old contents. ``accumulate_n``
 is a Python loop of launches. The JAX package's arrays are immutable; here
@@ -18,6 +18,7 @@ run of rays is a tight screen tile and pixel ids match the JAX package's.
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 
@@ -44,6 +45,8 @@ class RenderState:
     gbuff_mat_id: torch.Tensor  # (W, H) int64 holding the u32 word
     gbuff_prev_depth: torch.Tensor  # (W, H)
     gbuff_prev_normals: torch.Tensor  # (W, H, 2) f16
+    # ReSTIR's two reservoir slots (render/restir.py), None without ReSTIR
+    reservoirs: Any = None
     spp: int = 0
     frame: int = 0
 
@@ -54,7 +57,12 @@ def init_state(cfg, device) -> RenderState:
     def f(*shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device=device)
 
-    return RenderState(
+    reservoirs = None
+    if cfg.use_restir_pt:
+        from voxelrt_torch.render.restir import init_reservoir_storage
+
+        reservoirs = init_reservoir_storage(cfg, device)
+    return RenderState(reservoirs=reservoirs,
         color=f(w, h, 3), color_spec=f(w, h, 3), history=f(w, h, 4),
         history_spec=f(w, h, 4), history_spec_depth=f(w, h),
         gbuff_normals=f(w, h, 2, dtype=torch.float16), gbuff_depth=f(w, h),
@@ -154,6 +162,9 @@ def accumulate(cfg, scene, params, state: RenderState, key,
     scaled = (aw, ah) != (w, h)
     dev = state.color.device
     k = max(1, cfg.samples_per_launch)
+    if cfg.use_restir_pt and k != 1:
+        # the GRIS pass consumes one reservoir per pixel
+        raise ValueError("samples_per_launch must be 1 with ReSTIR-PT")
     n = aw * ah
     u, v, s_of_ray = wf if wf is not None else wavefront_constants(
         cfg, render_scale, dev)
@@ -210,7 +221,18 @@ def accumulate(cfg, scene, params, state: RenderState, key,
         prev_depth=state.gbuff_prev_depth,
         prev_normals=state.gbuff_prev_normals,
     )
-    del out
+    reservoirs = state.reservoirs
+    if cfg.use_restir_pt:
+        from voxelrt_torch.render.restir import spatial_gris
+
+        reservoir_img = {name: img(x) for name, x in out["reservoir"].items()}
+        del out
+        color, color_spec, reservoirs = spatial_gris(
+            cfg, scene, params, reservoir_img, color, color_spec, gbuffer,
+            state.frame, fold_in(key, 7777), camera_is_moving, render_scale)
+        del reservoir_img
+    else:
+        del out
 
     color, color_spec, refl_depth = temporal.temporal_prepass(
         cfg, color, color_spec, gbuffer["depth_reflection"], render_scale)
@@ -232,7 +254,7 @@ def accumulate(cfg, scene, params, state: RenderState, key,
         gbuff_depth_reflection=gbuffer["depth_reflection"],
         gbuff_position=gbuffer["position"], gbuff_mat_id=gbuffer["mat_id"],
         gbuff_prev_depth=gbuffer["depth"],
-        gbuff_prev_normals=gbuffer["normals"],
+        gbuff_prev_normals=gbuffer["normals"], reservoirs=reservoirs,
         spp=state.spp + k, frame=state.frame + 1)
 
 
