@@ -50,7 +50,18 @@ default route in turns, the sorted dispatches unsorted back held bitwise to
 B1 in ray order, and on each route a depth-1 B1 dispatch, B2 and B3 held to
 their twins; 20 example2 (8 taps, radius 6) and example6 with ReSTIR at
 128x72 on the card against the CPU path; 21
-``tools/restir_quality_torch.py`` on example6 at 1280x720; 16 example7's sky computed on the card at the default knobs into an
+``tools/restir_quality_torch.py`` on example6 at 1280x720; 22 the main
+path (64 spp at chunk 16) and ReSTIR (4 spp at chunk 1) each checkpointed
+mid-run and resumed in a fresh renderer, the resumed image within 1e-6 of
+the uninterrupted one, with the file's size and the save and load times; 23
+``make -C native`` on a copy of ``native/`` in a temporary directory, and
+when it builds, with the extension loaded from there for that phase only,
+the native PNG encoder and occupancy build against the Python ones and a served viewer frame split into render,
+``fetch_image``, ``to_uint8_rows`` and encode; 24 the portable traversal
+``ops/dda.raytrace`` against B1 (closest hit) on one sample's 921,600
+primaries, at most 1% disagreeing; 25 ``parallel_render`` and
+``sharded_accumulate_n`` on the card twice (dp=2), and on every card when
+there are several, ``torch.equal`` to one device's; 16 example7's sky computed on the card at the default knobs into an
 empty temporary cache, then found there, and the same sky at test knobs on
 the card against the CPU; 17 every example through
 ``tools/run_example_torch.py``'s function at 16 spp; then the kernels JSON
@@ -71,6 +82,7 @@ import collections
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1368,6 +1380,348 @@ def run_path(scene, frames):
     return imgs, stats.rows
 
 
+class Timed:
+    """Wraps a module function to add the seconds of each call to
+    ``self.s``."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.orig = getattr(module, name)
+        self.s = []
+
+        def wrapper(*args, **kwargs):
+            t = time.perf_counter()
+            out = self.orig(*args, **kwargs)
+            self.s.append(time.perf_counter() - t)
+            return out
+
+        setattr(module, name, wrapper)
+
+    def restore(self):
+        setattr(self.module, self.name, self.orig)
+
+
+def phase_checkpoint(tmp):
+    """Phase 22: checkpoint/resume on example6 at 1280x720. The main path,
+    64 spp at chunk=16: uninterrupted, then a run that checkpoints at 32 and
+    stops at 48, resumed from the checkpoint in a fresh HeadlessRenderer to
+    64; the same with ReSTIR (one sample a launch) at 4 spp, checkpointed at
+    2. The bar is the JAX package's (tests/test_checkpoint.py:70): max abs
+    difference 1e-6."""
+    import torch
+
+    from voxelrt_torch.utils import checkpoint as ck
+
+    def fresh(scene):
+        """A new HeadlessRenderer for ``scene``, as a new session has."""
+        scene._renderer = None
+        r = scene.renderer
+        r.prepare_data()
+        return r
+
+    rows = {}
+    for tag, spp, chunk, over in (
+            ("main", MAIN_SPP, MAIN_SPL, dict(samples_per_launch=MAIN_SPL)),
+            ("restir", 4, 1, dict(use_restir_pt=True,
+                                  samples_per_launch=1))):
+        scene = build_example("example6", None, **over)
+        img_full = fresh(scene).render(spp=spp, chunk=chunk,
+                                       log_every=10**9)
+        path = os.path.join(tmp, f"{tag}.npz")
+        save = Timed(ck, "save_render_state")
+        load = Timed(ck, "load_render_state")
+        try:
+            half = spp // 2
+            fresh(scene).render(spp=half + chunk, chunk=chunk,
+                                checkpoint_every=half, checkpoint_path=path,
+                                log_every=10**9)
+            r = fresh(scene)
+            img = r.render(spp=spp, chunk=chunk, resume_from=path,
+                           log_every=10**9)
+        finally:
+            save.restore()
+            load.restore()
+        if len(save.s) != 1 or len(load.s) != 1:
+            fail(f"checkpoint ({tag}): {len(save.s)} saves and "
+                 f"{len(load.s)} loads, expected one each")
+        diff = float(np.abs(img - img_full).max())
+        row = dict(spp=spp, chunk=chunk, killed_at=half, max_abs_diff=diff,
+                   bitwise_equal=bool(np.array_equal(img, img_full)),
+                   file_mb=os.path.getsize(path) / 1e6,
+                   state_mb=sum(
+                       t.numel() * t.element_size()
+                       for t in _state_tensors(r.state)) / 1e6,
+                   save_s=save.s[0], load_s=load.s[0],
+                   resumed_spp=int(r.state.spp))
+        rows[tag] = row
+        w, h = scene.config.image_res
+        print(f"checkpoint ({tag}, example6 {w}x{h}): {json.dumps(row)}",
+              flush=True)
+        if not np.isfinite(img).all() or not diff <= 1e-6 or \
+                row["resumed_spp"] != spp:
+            fail(f"checkpoint ({tag}): the resumed image differs from the "
+                 "uninterrupted one")
+        del r, scene
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _state_tensors(state):
+    import dataclasses
+
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if f.name == "reservoirs" and v is not None:
+            for slot in v:
+                yield from slot.values()
+        elif hasattr(v, "element_size"):
+            yield v
+
+
+def phase_native(tmp):
+    """Phase 23: the native runtime. ``make -C native`` on a copy of
+    ``native/`` in ``tmp``, so the checkout holds no build afterwards
+    (setuptools needs Python's headers, which a card host may lack); when it
+    builds, the extension is loaded from there for this phase only:
+    ``encode_png`` of example6's 1280x720 frame against the port's Python
+    encoder (the decoded pixels equal), ``build_occupancy`` on example6's
+    world against numpy (bit-equal), and a served viewer frame split into
+    its render, ``fetch_image``, ``to_uint8_rows`` and encode."""
+    from voxelrt_torch.utils import image, native
+    from voxelrt_torch.world import build_occupancy_pyramid
+
+    # the Makefile runs `python setup.py`: this interpreter, whose headers
+    # and ABI the extension must match, under that name
+    bindir = os.path.join(tmp, "bin")
+    os.makedirs(bindir, exist_ok=True)
+    with open(os.path.join(bindir, "python"), "w") as fh:
+        fh.write(f'#!/bin/sh\nexec "{sys.executable}" "$@"\n')
+    os.chmod(os.path.join(bindir, "python"), 0o755)
+    env = dict(os.environ, PATH=bindir + os.pathsep + os.environ["PATH"])
+    src = os.path.join(tmp, "native")
+    shutil.copytree(os.path.join(HERE, "native"), src,
+                    ignore=shutil.ignore_patterns("build", "*.so"))
+    t0 = time.perf_counter()
+    mk = subprocess.run(["make", "-C", src], capture_output=True, text=True,
+                        timeout=300, env=env)
+    build_s = time.perf_counter() - t0
+    ext = native.load_extension(src) if mk.returncode == 0 else None
+    built = ext is not None
+    out = dict(native_built=built, build_s=build_s)
+    if not built:
+        lines = (mk.stderr or mk.stdout).strip().splitlines()
+        out["compiler_last_line"] = lines[-1] if lines else ""
+    scene = build_example("example6", None)
+    rows = np.ascontiguousarray(image.to_uint8_rows(
+        scene.finish(spp=4, save=False)))
+    h, w, _ = rows.shape
+    path = os.path.join(tmp, "frame.png")
+
+    def encode_ms(encode, reps=5):
+        t = time.perf_counter()
+        for _ in range(reps):
+            png = encode(rows, w, h, 3)
+        return (time.perf_counter() - t) / reps * 1e3, png
+
+    out["encode_python_ms"], png_p = encode_ms(image.encode_png)
+    with open(path, "wb") as fh:
+        fh.write(png_p)
+    if not np.array_equal(image._read_png_minimal(path), rows):
+        fail("native phase: the Python encoder's PNG does not decode to "
+             "its pixels")
+    if built:
+        saved = native._native, native._tried
+        native._native, native._tried = ext, True
+        try:
+            out["encode_native_ms"], png_n = encode_ms(native.encode_png)
+            with open(path, "wb") as fh:
+                fh.write(png_n)
+            out["decoded_equal"] = bool(np.array_equal(
+                image._read_png_minimal(path), rows))
+            out["png_bytes"] = dict(native=len(png_n), python=len(png_p))
+            world = scene.world
+            t = time.perf_counter()
+            words = native.build_occupancy(world.material, world.grid_res,
+                                           world.n_lods)
+            out["occupancy_native_ms"] = (time.perf_counter() - t) * 1e3
+            t = time.perf_counter()
+            want = build_occupancy_pyramid(world.material != 0, world.n_lods)
+            out["occupancy_numpy_ms"] = (time.perf_counter() - t) * 1e3
+            out["occupancy_equal"] = bool(np.array_equal(words, want))
+            out["served_frame"] = served_frame_split(scene, tmp)
+        finally:
+            native._native, native._tried = saved
+        if not (out["decoded_equal"] and out["occupancy_equal"]):
+            fail(f"native phase: the native runtime disagrees: {out}")
+    print(f"native runtime: {json.dumps(out)}", flush=True)
+    return out
+
+
+def served_frame_split(scene, tmp, max_frames=16):
+    """The viewer's frames (example6 at 1280x720, served over HTTP) split
+    into the render (FrameStats' synced wall time), ``fetch_image``,
+    ``to_uint8_rows`` and the encode: the medians of the still frames."""
+    from voxelrt_torch.utils import image
+
+    r = scene.renderer
+    fetch = {"s": []}
+    orig_fetch = r.fetch_image
+
+    def timed_fetch(*a, **k):
+        t = time.perf_counter()
+        img = orig_fetch(*a, **k)
+        fetch["s"].append(time.perf_counter() - t)
+        return img
+
+    r.fetch_image = timed_fetch
+    rows = Timed(image, "to_uint8_rows")
+    enc = Timed(image, "encode_png")
+    try:
+        view = viewer_visit(scene, max_frames,
+                            os.path.join(tmp, "viewer_stats.csv"))
+    finally:
+        rows.restore()
+        enc.restore()
+        del r.fetch_image
+
+    def med(xs):
+        xs = sorted(xs[2:] or xs)  # past the first frames' warm-up
+        return xs[len(xs) // 2] * 1e3
+
+    return dict(served_frame_ms=view["served_frame_ms"],
+                render_still_ms=view["render_still_ms"],
+                render_moving_ms=view["render_moving_ms"],
+                fetch_image_ms=med(fetch["s"]),
+                to_uint8_rows_ms=med(rows.s), encode_ms=med(enc.s),
+                frames=view["frames"])
+
+
+def phase_portable():
+    """Phase 24: B1 (closest hit) and the portable traversal
+    ``ops/dda.raytrace`` on the same primaries on the card: one sample of
+    the main path's depth-0 dispatch, 921,600 rays, counted by the rule of
+    tests/test_dda_pallas.py:52-66; at most 1% may disagree."""
+    import torch
+
+    from voxelrt_torch.ops import dda as pdda
+    from voxelrt_torch.ops import dda_kernel as dk
+    from voxelrt_torch.ops import prng
+    from voxelrt_torch.render import pathtracer as pt
+    from voxelrt_torch.render import pipeline
+
+    scene = build_example("example6", None, samples_per_launch=1)
+    r = scene.renderer
+    r.prepare_data()
+    rec = Recorder(pt, "raytrace", keep=8)
+    try:
+        pipeline.accumulate(r.cfg, r.scene_data, r._params(1e9), r.state,
+                            prng.key(5))
+    finally:
+        rec.restore()
+    tables, origin, direction, tmin, tmax = rec.calls[0][0][:5]
+    n = origin.x.shape[0]
+    res = tables.grid_res
+    pyr = pdda.OccupancyPyramid(r.scene_data.occ_words, res,
+                                int(np.log2(res)))
+    o = torch.stack(list(origin), -1)
+    d = torch.stack(list(direction), -1)
+
+    def b1():
+        return dk.raytrace(tables, origin, direction, tmin, tmax)
+
+    def portable():
+        return pdda.raytrace(pyr, o, d, tmin, tmax)
+
+    got = b1()
+    ref = portable()
+    bad = pdda.disagreements(ref, got.distance, torch.stack(list(got.ipos), -1),
+                             torch.stack(list(got.normal), -1))
+    n_bad = int(bad.sum())
+    hits = int(torch.isfinite(ref.distance).sum())
+    row = dict(rays=n, hits=hits, disagree=n_bad, disagree_frac=n_bad / n,
+               b1_ms=device_ms(b1, 10), portable_ms=cuda_ms(portable, 2),
+               portable_most_advances=int(ref.iters.max()),
+               b1_most_advances=int(got.iters.max()))
+    print(f"portable traversal vs B1 (example6 primaries, one sample): "
+          f"{json.dumps(row)}", flush=True)
+    if n != r.cfg.image_res[0] * r.cfg.image_res[1] or n_bad > 0.01 * n \
+            or hits == 0:
+        fail("the portable traversal and B1 disagree on more than 1% of "
+             "the primaries")
+    return row
+
+
+def phase_multidevice(card):
+    """Phase 25: multi-device rendering on example6 at 1280x720.
+    ``parallel_render`` (4 spp) and ``sharded_accumulate_n`` (16 still
+    samples in one launch, then 2 moving frames) on a mesh of ``card``
+    twice (dp=2), and on every visible card when there are several, each
+    held to the one-device run by ``torch.equal``; wall times beside it."""
+    import torch
+
+    from voxelrt_torch.ops import prng
+    from voxelrt_torch.parallel import sharding
+    from voxelrt_torch.render import pipeline
+
+    scene = build_example("example6", None, samples_per_launch=MAIN_SPL)
+    r = scene.renderer
+    r.prepare_data()
+    cfg, sd = r.cfg, r.scene_data
+    still, moving = r._params(1e9), r._params(50.0)
+    key = prng.key(9)
+
+    def walled(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    def accumulate(mesh):
+        st = pipeline.init_state(cfg, sd.occ_words.device)
+        if mesh is None:
+            run = pipeline.accumulate_n
+        else:
+            def run(*a):
+                return sharding.sharded_accumulate_n(*a, mesh=mesh)
+        st = run(cfg, sd, still, st, key, False, 1.0, MAIN_SPL)
+        st = pipeline.reset_framebuffer(st)
+        for i in range(2):
+            st = run(cfg, sd, moving, st, prng.key(100 + i), True, 0.5, 1)
+        return st
+
+    def render(mesh):
+        return sharding.parallel_render(cfg, sd, still, key, 4, mesh)
+
+    one = sharding.make_mesh([card])
+    meshes = {f"{card} x2 (dp=2)": sharding.make_mesh([card] * 2, dp=2)}
+    if torch.cuda.device_count() > 1:
+        meshes[f"{torch.cuda.device_count()} cards"] = sharding.make_mesh()
+    img1, img1_ms = walled(lambda: render(one))
+    st1, st1_ms = walled(lambda: accumulate(None))
+    img1_ms = walled(lambda: render(one))[1]  # past first calls
+    st1_ms = walled(lambda: accumulate(None))[1]
+    rows = {}
+    for name, mesh in meshes.items():
+        walled(lambda: render(mesh))
+        img, ms = walled(lambda: render(mesh))
+        st, st_ms = walled(lambda: accumulate(mesh))
+        equal = dict(parallel_render=bool(torch.equal(img, img1)),
+                     **{f: bool(torch.equal(getattr(st, f), getattr(st1, f)))
+                        for f in ("color", "history", "history_spec")})
+        rows[name] = dict(equal=equal, parallel_render_ms=ms,
+                          parallel_render_one_device_ms=img1_ms,
+                          sharded_accumulate_ms=st_ms,
+                          accumulate_one_device_ms=st1_ms)
+        print(f"multi-device ({name}): {json.dumps(rows[name])}", flush=True)
+        if not all(equal.values()):
+            fail(f"multi-device ({name}): the sharded render is not equal "
+                 "to one device's")
+    if not torch.isfinite(img1).all() or float(img1.std()) <= 0.0:
+        fail("multi-device: the one-device image is not finite or constant")
+    return rows
+
+
 def main():
     import torch
 
@@ -1727,6 +2081,27 @@ def main():
     restir_quality = timed("21", phase_restir_quality)
     print(f"phases 18-21, seconds each: {json.dumps(phase_s)}", flush=True)
 
+    # -- 22-25. checkpoint/resume, the native runtime, the portable
+    # traversal, multi-device rendering ------------------------------------
+    # (each phase's launches counted from 0; phase 24's include its timed
+    # calls)
+    phase_launches = {}
+
+    def counted(tag, fn, *args):
+        _cuda.reset_launch_counts()
+        out = timed(tag, fn, *args)
+        phase_launches[tag] = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        checkpoint = counted("22", phase_checkpoint, tmp)
+        native_rt = counted("23", phase_native, tmp)
+    portable = counted("24", phase_portable)
+    multidevice = counted("25", phase_multidevice, torch.device("cuda", 0))
+    print(f"phases 22-25, seconds each: "
+          f"{json.dumps({k: phase_s[k] for k in ('22', '23', '24', '25')})}"
+          f", launches: {json.dumps(phase_launches)}", flush=True)
+
     # -- 16. a full-size sky on the card; 17. every example ---------------------
     with tempfile.TemporaryDirectory() as sky_cache:
         sky = phase_sky(sky_cache)
@@ -1941,7 +2316,10 @@ def main():
                        probe=probe, restir_path=restir, routes=routes,
                        restir_small=restir_small,
                        restir_quality=restir_quality,
-                       restir_phase_s=phase_s),
+                       restir_phase_s=phase_s, checkpoint=checkpoint,
+                       native=native_rt, portable_traversal=portable,
+                       multidevice=multidevice,
+                       new_phase_launches=phase_launches),
                   fh, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)

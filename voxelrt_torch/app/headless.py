@@ -151,15 +151,35 @@ class HeadlessRenderer:
 
     # -- static-camera progressive render ------------------------------------
 
-    def render(self, spp=512, chunk=None, log_every=128, stats=None):
+    def render(self, spp=512, chunk=None, log_every=128,
+               checkpoint_every=None, checkpoint_path=None, resume_from=None,
+               stats=None):
         """Accumulate ``spp`` samples with the camera fixed, ``chunk``
         samples per accumulate_n call keyed by fold_in(key, frame) as in the
         JAX package; returns the tonemapped (W, H, 3) float image.
+
+        Checkpoint/resume (utils/checkpoint.py, the JAX package's file
+        format): with ``checkpoint_path`` and ``checkpoint_every`` the whole
+        state, the RNG key and the frame and spp counters are saved after a
+        chunk once ``checkpoint_every`` samples have run since the last save,
+        and never after the last chunk; ``resume_from`` restores such a file
+        and continues to ``spp`` samples in total. A resumed render gives the
+        uninterrupted image exactly when both runs use the same ``chunk``.
+
         ``stats``: optional :class:`voxelrt_torch.utils.profiling.FrameStats`
         receiving one row per chunk."""
         chunk = chunk or max(1, min(spp, self.cfg.samples_per_launch * 8))
         params = self._params(max_accum_frames=999999999.0)
         done = 0
+        if resume_from is not None:
+            from voxelrt_torch.utils.checkpoint import load_render_state
+
+            self.state, self.key, self._frame, extra = load_render_state(
+                resume_from, self.state)
+            done = int(extra.get("done", self._frame))
+            if not self.quiet:
+                print(f"  resumed at {done}/{spp} spp from {resume_from}")
+        last_saved = done
         n_pixels = self.cfg.image_res[0] * self.cfg.image_res[1]
         t0 = time.perf_counter()
         while done < spp:
@@ -177,6 +197,13 @@ class HeadlessRenderer:
                              (time.perf_counter() - tc0) * 1e3,
                              n_rays=n * n_pixels * 2 * self.cfg.max_ray_depth,
                              quiet=self.quiet)
+            if checkpoint_path and checkpoint_every and done < spp and (
+                    done - last_saved >= checkpoint_every):
+                from voxelrt_torch.utils.checkpoint import save_render_state
+
+                save_render_state(checkpoint_path, self.state, self.key,
+                                  self._frame, extra={"done": done})
+                last_saved = done
             if not self.quiet and (done % log_every == 0 or done == spp):
                 sync(self.device)
                 print(f"  {done}/{spp} spp  ({time.perf_counter() - t0:.2f}s)")

@@ -13,7 +13,8 @@ stream as PNG, and the page forwards keyboard/mouse input back. Start with:
 Implements the reference's motion policy: moving -> render_scale 0.5 +
 50-frame accumulation cap; still -> full res, unbounded accumulation;
 framebuffer reset on transitions (scene.py:206-256). 'p' saves a screenshot
-(scene.py:264-272) with utils/image.write_png, in the render loop.
+(scene.py:264-272): on the native runtime's writer thread when it is built
+(utils/native.py), with utils/image.write_png in the render loop otherwise.
 """
 
 from __future__ import annotations
@@ -82,6 +83,7 @@ def serve(scene, port=8000, host="127.0.0.1", spp_per_frame=1,
     ``res``: serve at this resolution instead of the scene's (e.g.
     ``(1920, 1080)``, the reference's native window size, scene.py:12)."""
     from voxelrt_torch.utils.image import encode_png, to_uint8_rows, write_png
+    from voxelrt_torch.utils.native import frame_writer
     from voxelrt_torch.utils.profiling import FrameStats
 
     if res is not None and tuple(res) != tuple(scene.config.image_res):
@@ -92,6 +94,7 @@ def serve(scene, port=8000, host="127.0.0.1", spp_per_frame=1,
     r.prepare_data()
     vs = ViewerState()
     w, h = scene.config.image_res
+    writer = frame_writer()
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, *a):
@@ -153,8 +156,14 @@ def serve(scene, port=8000, host="127.0.0.1", spp_per_frame=1,
                 f["orbit"] = (dx, dy)
             if "p" in keys:
                 stamp = datetime.today().strftime("%Y-%m-%d-%H%M%S")
-                write_png(os.path.join("screenshot", f"viewer-{stamp}.png"),
-                          r.fetch_image())
+                path = os.path.join("screenshot", f"viewer-{stamp}.png")
+                if writer is None:
+                    write_png(path, r.fetch_image())
+                else:
+                    # encoded and written on the native worker thread
+                    os.makedirs("screenshot", exist_ok=True)
+                    rows = np.ascontiguousarray(to_uint8_rows(r.fetch_image()))
+                    writer.submit(path, rows.tobytes(), w, h)
             yield f
 
     stats = FrameStats(csv_path=stats_csv)
@@ -178,3 +187,5 @@ def serve(scene, port=8000, host="127.0.0.1", spp_per_frame=1,
         vs.running = False
         server.shutdown()
         server.server_close()
+        if writer is not None:
+            writer.drain()

@@ -17,6 +17,15 @@ of them as leaving per-ray results unchanged. The port's traversal kernel
 reads the two sun-open knobs, ``dda_sun_mode`` and ``dda_nee_src_open``,
 which leave per-ray results unchanged as well.
 
+``use_pallas_dda`` is a routing decision: the JAX package traces with its
+portable traversal (``ops/dda.py``) when it is False, its default, on the
+CPU and the GPU, and with its kernel on a TPU. Routed that way the port's
+default config would run no kernel on the card, so the port keeps ignoring
+the flag and always traces with its kernel B1. Its own portable traversal,
+``voxelrt_torch/ops/dda.py``, is B1's second oracle in the tests and on the
+card, not a route of ``trace_sample``; the JAX package documents the two
+routes as giving the same per-ray results.
+
 The reference scatters configuration across three tiers: module constants
 (``USE_RESTIR_PT``, ``MAX_RAY_DEPTH``, ``RADIANCE_CLAMP`` at
 renderer/pathtracer.py:15-20; ``SCREEN_RES``/``VOXEL_DX`` at scene.py:11-12),

@@ -21,6 +21,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from voxelrt_torch.ops.lookup import lookup_onehot
+
 N_SLOTS = 128
 PARAM_NAMES = (
     "base_col_r", "base_col_g", "base_col_b",
@@ -84,10 +86,7 @@ def fetch_material(params: torch.Tensor, mat_id: torch.Tensor,
 
     Ids outside [0, 128) read an all-zero row, as the JAX package's one-hot
     lookup does."""
-    valid = (mat_id >= 0) & (mat_id < N_SLOTS)
-    p = params[mat_id.clamp(0, N_SLOTS - 1).long()]
-    p = torch.where(valid[:, None], p, torch.zeros((), dtype=p.dtype,
-                                                   device=p.device))
+    p = lookup_onehot(params, mat_id)
     base = p[:, 0:3] if albedo is None else albedo
     return Material(
         base_col=base,

@@ -147,7 +147,7 @@ def sample_keys_of(key, k_samples):
 
 def accumulate(cfg, scene, params, state: RenderState, key,
                camera_is_moving: bool = False, render_scale: float = 1.0,
-               wf=None) -> RenderState:
+               wf=None, trace_fn=None) -> RenderState:
     """One progressive frame for every active pixel:
     ``cfg.samples_per_launch`` path samples traced as ONE wavefront of k·n
     rays, averaged, and blended into the history with weight k
@@ -156,7 +156,11 @@ def accumulate(cfg, scene, params, state: RenderState, key,
     Render scaling traces ONLY the active-res wavefront and embeds the
     results into the top-left of the full-res buffers (the reference masks
     out-of-area threads instead, renderer/pathtracer.py:289-291). Pixel ids,
-    and so the per-pixel random streams, are unchanged."""
+    and so the per-pixel random streams, are unchanged.
+
+    ``trace_fn``: optional replacement for :func:`trace_sample` with the
+    same signature and the same per-lane outputs; parallel.sharding passes
+    one that traces the wavefront's lanes on several devices."""
     w, h = cfg.image_res
     aw, ah = active_res(cfg, render_scale)
     scaled = (aw, ah) != (w, h)
@@ -176,7 +180,7 @@ def accumulate(cfg, scene, params, state: RenderState, key,
         keys, jit = keys.pin_memory(), jit.pin_memory()
     k0, k1 = keys.to(dev, non_blocking=True)
     ju = jit.to(dev, non_blocking=True)
-    out = trace_sample(cfg, scene, params, u, v,
+    out = (trace_fn or trace_sample)(cfg, scene, params, u, v,
                        (k0[s_of_ray], k1[s_of_ray]),
                        (ju[s_of_ray, 0], ju[s_of_ray, 1]),
                        camera_is_moving, render_scale)
@@ -259,14 +263,16 @@ def accumulate(cfg, scene, params, state: RenderState, key,
 
 
 def accumulate_n(cfg, scene, params, state, key, camera_is_moving=False,
-                 render_scale=1.0, n_samples: int = 1):
+                 render_scale=1.0, n_samples: int = 1, trace_fn=None):
     """Accumulate ``n_samples`` path samples: ceil(n_samples /
-    samples_per_launch) launches, launch i keyed by fold_in(key, i)."""
+    samples_per_launch) launches, launch i keyed by fold_in(key, i);
+    ``trace_fn`` as in :func:`accumulate`."""
     k = max(1, cfg.samples_per_launch)
     wf = wavefront_constants(cfg, render_scale, state.color.device)
     for i in range(-(-n_samples // k)):
         state = accumulate(cfg, scene, params, state, fold_in(key, i),
-                           camera_is_moving, render_scale, wf=wf)
+                           camera_is_moving, render_scale, wf=wf,
+                           trace_fn=trace_fn)
     return state
 
 

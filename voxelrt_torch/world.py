@@ -122,7 +122,9 @@ class VoxelWorld:
         each frame (renderer/voxel_world.py:69-87) — one gather fetches both
         albedo and material id. The renderer uploads what it needs.
         """
-        occ = build_occupancy_pyramid(self.material != 0, self.n_lods)
+        from voxelrt_torch.utils.native import build_occupancy
+
+        occ = build_occupancy(self.material, self.grid_res, self.n_lods)
         c = self.color.astype(np.uint32)
         m = self.material.astype(np.uint8).astype(np.uint32)
         packed = c[..., 0] | (c[..., 1] << 8) | (c[..., 2] << 16) | (m << 24)
