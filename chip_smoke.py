@@ -59,9 +59,14 @@ when it builds, with the extension loaded from there for that phase only,
 the native PNG encoder and occupancy build against the Python ones and a served viewer frame split into render,
 ``fetch_image``, ``to_uint8_rows`` and encode; 24 the portable traversal
 ``ops/dda.raytrace`` against B1 (closest hit) on one sample's 921,600
-primaries, at most 1% disagreeing; 25 ``parallel_render`` and
-``sharded_accumulate_n`` on the card twice (dp=2), and on every card when
-there are several, ``torch.equal`` to one device's; 16 example7's sky computed on the card at the default knobs into an
+primaries, at most 1% disagreeing; 25 ``parallel_render`` and the still
+frame partitioned over 'dp' (``sharded_accumulate_n``: a 16-sample launch,
+a second one under ``torch.cuda.set_sync_debug_mode("error")``, a
+still→moving→still sequence, ReSTIR at 32 taps for 4 spp) on the card twice
+(dp=2), and on every card when there are several, every field of the
+gathered state ``torch.equal`` to one device's, with wall ms, each
+device's peak memory and a profiled launch beside one device's; 16
+example7's sky computed on the card at the default knobs into an
 empty temporary cache, then found there, and the same sky at test knobs on
 the card against the CPU; 17 every example through
 ``tools/run_example_torch.py``'s function at 16 spp; then the kernels JSON
@@ -1651,12 +1656,20 @@ def phase_portable():
     return row
 
 
-def phase_multidevice(card):
-    """Phase 25: multi-device rendering on example6 at 1280x720.
-    ``parallel_render`` (4 spp) and ``sharded_accumulate_n`` (16 still
-    samples in one launch, then 2 moving frames) on a mesh of ``card``
-    twice (dp=2), and on every visible card when there are several, each
-    held to the one-device run by ``torch.equal``; wall times beside it."""
+def phase_multidevice(card, smi):
+    """Phase 25: multi-device rendering on example6 at 1280x720, on a mesh
+    of ``card`` twice (dp=2) and, when there are several, of every card.
+    ``parallel_render`` (4 spp) against one device. The still frame
+    partitioned over 'dp' (``sharded_accumulate_n``): a 16-sample launch,
+    every field of the gathered state ``torch.equal`` to one device's; a
+    second launch from the partitioned state with any host synchronisation
+    an error, equal to one device's second launch; its wall ms, each
+    device's peak memory, and a profiled launch's kernels and device ms,
+    beside one device's; a still→moving→still sequence (a reset, two moving
+    frames at half scale, a reset, a still launch), equal on every field;
+    and ReSTIR at the JAX defaults (32 taps, radius 24) partitioned for 4
+    spp (timed after a 1-spp render), equal on every field, both reservoir
+    slots included."""
     import torch
 
     from voxelrt_torch.ops import prng
@@ -1669,6 +1682,7 @@ def phase_multidevice(card):
     cfg, sd = r.cfg, r.scene_data
     still, moving = r._params(1e9), r._params(50.0)
     key = prng.key(9)
+    home = sd.occ_words.device
 
     def walled(fn):
         torch.cuda.synchronize()
@@ -1677,48 +1691,140 @@ def phase_multidevice(card):
         torch.cuda.synchronize()
         return out, (time.perf_counter() - t) * 1e3
 
-    def accumulate(mesh):
-        st = pipeline.init_state(cfg, sd.occ_words.device)
+    def unequal(a, b):
+        """The fields of the one-device state ``a`` that the gathered
+        ``b`` does not equal."""
+        b = sharding.gather_state(b, a.color.device)
+        bad = []
+        for f in dataclasses.fields(a):
+            x, y = getattr(a, f.name), getattr(b, f.name)
+            if f.name == "reservoirs":
+                if (x is None) != (y is None):
+                    bad.append(f.name)
+                for i, (sx, sy) in enumerate(zip(x or (), y or ())):
+                    bad += [f"reservoirs.{i}.{k}" for k in sx
+                            if not torch.equal(sx[k], sy[k])]
+            elif isinstance(x, torch.Tensor):
+                if not torch.equal(x, y):
+                    bad.append(f.name)
+            elif x != y:
+                bad.append(f.name)
+        return bad
+
+    def runner(mesh):
         if mesh is None:
-            run = pipeline.accumulate_n
-        else:
-            def run(*a):
-                return sharding.sharded_accumulate_n(*a, mesh=mesh)
-        st = run(cfg, sd, still, st, key, False, 1.0, MAIN_SPL)
+            return pipeline.accumulate_n
+        return lambda *a: sharding.sharded_accumulate_n(*a, mesh=mesh)
+
+    def launch(mesh, st):
+        return runner(mesh)(cfg, sd, still, st, key, False, 1.0, MAIN_SPL)
+
+    def sequence(mesh, st):
+        run = runner(mesh)
         st = pipeline.reset_framebuffer(st)
         for i in range(2):
             st = run(cfg, sd, moving, st, prng.key(100 + i), True, 0.5, 1)
-        return st
+        st = pipeline.reset_framebuffer(st)
+        return run(cfg, sd, still, st, prng.key(102), False, 1.0, MAIN_SPL)
+
+    def peak_run(mesh, fn):
+        devs = [home] if mesh is None else mesh.distinct()
+        torch.cuda.synchronize()
+        for d in devs:
+            torch.cuda.reset_peak_memory_stats(d)
+        out, ms = walled(fn)
+        return out, ms, {str(d): torch.cuda.max_memory_allocated(d) / 1e9
+                         for d in devs}
 
     def render(mesh):
         return sharding.parallel_render(cfg, sd, still, key, 4, mesh)
 
-    one = sharding.make_mesh([card])
+    w = cfg.image_res[0]
     meshes = {f"{card} x2 (dp=2)": sharding.make_mesh([card] * 2, dp=2)}
-    if torch.cuda.device_count() > 1:
-        meshes[f"{torch.cuda.device_count()} cards"] = sharding.make_mesh()
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1 and w % (16 * n_cards) == 0:
+        meshes[f"{n_cards} cards"] = sharding.make_mesh()
+    elif n_cards > 1:
+        print(f"multi-device: {w} rows do not split into {n_cards} blocks "
+              "of whole tile columns; the mesh of every card is not run",
+              flush=True)
+    one = sharding.make_mesh([card])
+    st0 = pipeline.init_state(cfg, home)
+    render(one)
     img1, img1_ms = walled(lambda: render(one))
-    st1, st1_ms = walled(lambda: accumulate(None))
-    img1_ms = walled(lambda: render(one))[1]  # past first calls
-    st1_ms = walled(lambda: accumulate(None))[1]
+    launch(None, st0)  # past first calls
+    st1, st1_ms, st1_peak = peak_run(None, lambda: launch(None, st0))
+    st1_prof = profile_call(lambda: launch(None, st0))
+    st2 = launch(None, st1)
+    seq1 = sequence(None, st1)
+
+    rscene = build_example("example6", None, use_restir_pt=True)
+    rr = rscene.renderer
+    rr.prepare_data()
+    rcfg = rr.cfg
+    if (rcfg.restir_taps, rcfg.restir_radius, rcfg.samples_per_launch) != (
+            32, 24.0, 1):
+        fail("multi-device: the ReSTIR render does not run at the JAX "
+             "defaults")
+    rparams = rr._params(1e9)
+
+    def restir(mesh, spp=4):
+        return runner(mesh)(rcfg, rr.scene_data, rparams,
+                            pipeline.init_state(rcfg, home), key, False, 1.0,
+                            spp)
+
+    restir(None, 1)  # past first calls
+    rst1, rst1_ms = walled(lambda: restir(None))
     rows = {}
     for name, mesh in meshes.items():
-        walled(lambda: render(mesh))
+        render(mesh)
         img, ms = walled(lambda: render(mesh))
-        st, st_ms = walled(lambda: accumulate(mesh))
-        equal = dict(parallel_render=bool(torch.equal(img, img1)),
-                     **{f: bool(torch.equal(getattr(st, f), getattr(st1, f)))
-                        for f in ("color", "history", "history_spec")})
-        rows[name] = dict(equal=equal, parallel_render_ms=ms,
-                          parallel_render_one_device_ms=img1_ms,
-                          sharded_accumulate_ms=st_ms,
-                          accumulate_one_device_ms=st1_ms)
-        print(f"multi-device ({name}): {json.dumps(rows[name])}", flush=True)
-        if not all(equal.values()):
-            fail(f"multi-device ({name}): the sharded render is not equal "
-                 "to one device's")
-    if not torch.isfinite(img1).all() or float(img1.std()) <= 0.0:
-        fail("multi-device: the one-device image is not finite or constant")
+        launch(mesh, st0)
+        part, part_ms, part_peak = peak_run(mesh, lambda: launch(mesh, st0))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            part2 = launch(mesh, part)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        prof = profile_call(lambda: launch(mesh, st0))
+        seq = sequence(mesh, part)
+        restir(mesh, 1)
+        rst, rst_ms = walled(lambda: restir(mesh))
+        blocks = [(str(b.color.device), b.color.shape[0]) for b in part]
+        unequal_fields = dict(
+            parallel_render=[] if torch.equal(img, img1) else ["image"],
+            still_launch=unequal(st1, part),
+            second_launch_sync_checked=unequal(st2, part2),
+            still_moving_still=unequal(seq1, seq),
+            restir_4spp=unequal(rst1, rst))
+        rows[name] = dict(
+            unequal_fields=unequal_fields, blocks=blocks,
+            parallel_render_ms=ms, parallel_render_one_device_ms=img1_ms,
+            partitioned_launch_ms=part_ms, one_device_launch_ms=st1_ms,
+            partitioned_peak_gb=part_peak, one_device_peak_gb=st1_peak,
+            partitioned_profile=prof, one_device_profile=st1_prof,
+            restir_4spp_ms=rst_ms, restir_4spp_one_device_ms=rst1_ms,
+            sequence_ends_partitioned=isinstance(seq, tuple))
+        print(f"multi-device ({name}; {smi}): {json.dumps(rows[name])}",
+              flush=True)
+        if any(unequal_fields.values()):
+            fail(f"multi-device ({name}): the partitioned render is not "
+                 f"equal to one device's: {unequal_fields}")
+        if [d for d, _ in blocks] != [str(mesh.devices[i][0])
+                                      for i in range(mesh.shape["dp"])] \
+                or sum(n for _, n in blocks) != w \
+                or not rows[name]["sequence_ends_partitioned"]:
+            fail(f"multi-device ({name}): the state is not partitioned over "
+                 "the mesh's 'dp' devices")
+        del part, part2, seq, rst
+    if not torch.isfinite(img1).all() or float(img1.std()) <= 0.0 or \
+            not torch.isfinite(rst1.color).all() or \
+            float(st1.color.std()) <= 0.0:
+        fail("multi-device: the one-device images are not finite or constant")
+    del st1, st2, seq1, rst1, rr, rscene, r, scene
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -2097,7 +2203,8 @@ def main():
         checkpoint = counted("22", phase_checkpoint, tmp)
         native_rt = counted("23", phase_native, tmp)
     portable = counted("24", phase_portable)
-    multidevice = counted("25", phase_multidevice, torch.device("cuda", 0))
+    multidevice = counted("25", phase_multidevice, torch.device("cuda", 0),
+                          smi)
     print(f"phases 22-25, seconds each: "
           f"{json.dumps({k: phase_s[k] for k in ('22', '23', '24', '25')})}"
           f", launches: {json.dumps(phase_launches)}", flush=True)

@@ -6,11 +6,12 @@ on a grid of CPU devices (a device may appear more than once in the grid).
   one-device mesh, and on a (2, 2) grid JAX's (2, 2) mesh of the host
   devices tests/conftest.py forces (the same keys): within 1e-4.
 * ``sharded_accumulate_n`` on 4 shards equals ``pipeline.accumulate_n`` bit
-  for bit: still frames, still with ReSTIR, a moving frame, the sorted
-  route and the table draws (the table is drawn per ray from its pixel's
-  key, so it does not depend on where a lane lands). A still frame's
-  wavefronts go through the sharded trace in four equal chunks; a moving
-  frame, which runs unsharded, never reaches it.
+  for bit once its partitioned state is gathered: still frames, still with
+  ReSTIR, a moving frame, the sorted route and the table draws (the table
+  is drawn per ray from its pixel's key, so it does not depend on where a
+  lane lands). A still frame's wavefronts go through the sharded trace in
+  four equal chunks, one a block; a moving frame, which runs unsharded,
+  never reaches it and returns one RenderState.
 
 The tiny config: the JAX package takes its own route on the CPU, the
 portable traversal (``use_pallas_dda=False``), the port its B1 twin."""
@@ -110,10 +111,12 @@ def test_sharded_accumulate_n_bitwise(port, over, moving, monkeypatch):
     b = sharding.sharded_accumulate_n(cfg, sd, p, tpl.init_state(cfg, "cpu"),
                                       prng.key(5), moving, scale, 2, mesh)
     if moving:
-        assert shard_lanes == []
+        assert shard_lanes == [] and isinstance(b, tpl.RenderState)
     else:
         assert shard_lanes and len(shard_lanes) % 4 == 0
         assert len(set(shard_lanes)) == 1
+        assert isinstance(b, tuple) and len(b) == 4
+        b = sharding.gather_state(b)
     for f in dataclasses.fields(a):
         x, y = getattr(a, f.name), getattr(b, f.name)
         if f.name == "reservoirs":
@@ -137,3 +140,7 @@ def test_shard_state_splits_rows(port):
                                    for s in parts)
     assert torch.equal(torch.cat([s.color for s in parts]), st.color)
     assert parts[1].reservoirs[0]["M"].shape == (16, 32)
+    back = sharding.gather_state(parts)
+    assert torch.equal(back.color, st.color) and back.spp == 3
+    assert all(torch.equal(back.reservoirs[i][k], st.reservoirs[i][k])
+               for i in (0, 1) for k in st.reservoirs[i])

@@ -97,23 +97,26 @@ def _threefry_i32(k0, k1, x1):
     return x0, x1
 
 
-def uniform(k, shape, device):
+def uniform(k, shape, device, offset=0):
     """``jax.random.uniform(k, shape)`` in float32, as a tensor on
     ``device``. The key entries are python ints or int64 tensors of one
     common shape B (a batch of keys, as ``fold_in`` of a tensor returns
     them); the result has shape B + shape, each key drawing what it would
-    draw alone."""
+    draw alone. ``offset`` starts the counters there: ``uniform(k, n, d,
+    offset=a)`` is ``uniform(k, a + n, d)[a:]`` bit for bit, which is how a
+    block of an image draws its own pixels' numbers."""
     shape = (shape,) if isinstance(shape, int) else tuple(shape)
     n = 1
     for s in shape:
         n *= int(s)
-    if n >= 1 << 32:
+    if offset + n >= 1 << 32:
         raise ValueError("uniform: more than 2**32 draws per key")
     k0, k1 = _i32(k[0], device), _i32(k[1], device)
     batch = tuple(torch.broadcast_shapes(k0.shape, k1.shape))
     # arange in int64, then the wrapping cast: counters from 2**31 on keep
     # their bits
-    idx = torch.arange(n, dtype=torch.int64, device=device).to(torch.int32)
+    idx = torch.arange(offset, offset + n, dtype=torch.int64,
+                       device=device).to(torch.int32)
     x1 = idx.expand(batch + (n,)).clone()
     y0, y1 = _threefry_i32(k0[..., None], k1[..., None], x1)
     y0 ^= y1

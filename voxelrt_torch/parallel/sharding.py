@@ -6,26 +6,37 @@ JAX package's single-controller ``Mesh`` does; ``torch.distributed`` is not
 involved. A device may appear more than once in the grid, which is how one
 card (or the CPU) runs the multi-device code paths.
 
-  * **dp**: the image's pixel rows (the first, W axis of the buffers). The
-    scene (occupancy pyramid, packed voxels, palette, sky) is replicated
-    once per distinct device: it is far smaller than the per-pixel state.
-  * **sp**: progressive samples. Each sp slice traces its own samples with
-    decorrelated keys, and a mean over 'sp' merges them.
+  * **dp**: the image's pixel rows (the first, W axis of the buffers). A
+    still frame's state is partitioned (:func:`shard_state`): block i,
+    W/dp rows, lives on ``devices[i][0]``. The scene (occupancy pyramid,
+    packed voxels, palette, sky) and the params are replicated once per
+    distinct device: they are far smaller than the per-pixel state.
+  * **sp**: the lanes of a block's wavefront, split over the block's row
+    of the grid (:func:`make_sharded_trace`); in :func:`parallel_render`,
+    progressive samples, merged by a mean over 'sp'.
 
 Two entry points:
-  * :func:`sharded_accumulate_n`: the full progressive step (render +
-    temporal pipeline). A still frame traces its wavefront's lanes split
-    over every device of the grid (:func:`make_sharded_trace`); the GRIS
-    pass and the temporal pipeline run on the state's device. A moving
-    frame runs unsharded, as the JAX package runs it replicated.
+  * :func:`sharded_accumulate_n`: the full progressive step. A still frame
+    runs per block: the block's wavefront (its active pixels, in the
+    image's order, with the image's pixel ids) is traced over its row of
+    the grid and gathered onto ``devices[i][0]``; the GRIS pass and the
+    temporal pipeline then run on the block, with halo rows of the other
+    blocks' post-trace buffers (ceil(restir_radius) rows each side for the
+    GRIS taps, 1 before and 2 after for the prepass's 4×4 window) copied
+    device to device without waiting for the host (:func:`rows`). It
+    returns the partitioned state, a tuple of per-block RenderStates;
+    :func:`gather_state` makes one RenderState of it. A moving frame runs
+    unpartitioned on the scene's device, as the JAX package runs it
+    replicated: the state is gathered there at the still→moving transition
+    and split again at moving→still.
   * :func:`parallel_render`: plain-average rendering over the grid, each
     (dp, sp) shard tracing its rows for spp/|sp| samples (no temporal
     filtering).
 
-Where the port differs from the JAX package: there GSPMD partitions the
-still frame's temporal pipeline over 'dp' as well; here it runs on one
-device. Per-lane trace outputs, and so the images, are the same either way:
-every random number is keyed on the global pixel id.
+Every random number is keyed on the global pixel id, and the GRIS pass's
+threefry counters are its pixels' (``prng.uniform``'s offset), so a block
+computes its pixels' values of the one-device frame bit for bit: the
+gathered state is ``pipeline.accumulate_n``'s.
 """
 
 from __future__ import annotations
@@ -48,7 +59,7 @@ class Mesh:
         self.devices = tuple(tuple(row) for row in devices)
         self.shape = {"dp": len(self.devices), "sp": len(self.devices[0])}
         self._replicas = {}  # type of tree -> (last tree, its copies)
-        self._trace_fn = None
+        self._trace_fns = {}  # row of the grid -> make_sharded_trace's
 
     @property
     def flat(self):
@@ -94,6 +105,10 @@ def _to(tree, device):
     """``tree`` with every tensor on ``device`` (other leaves as they are)."""
     if isinstance(tree, torch.Tensor):
         return tree.to(device)
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: _to(getattr(tree, f.name), device)
+            for f in dataclasses.fields(tree)})
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     if hasattr(tree, "_fields"):
@@ -116,11 +131,15 @@ def replicate(tree, mesh: Mesh) -> dict:
     return copies
 
 
+def _move(x, device):
+    """``x`` on ``device``; a copy to a card does not wait for the host."""
+    return x.to(device, non_blocking=device.type == "cuda")
+
+
 def shard_state(state: pipeline.RenderState, mesh: Mesh):
-    """The state's (W, H, ...) buffers split into 'dp' blocks of rows, block
-    i on ``mesh.devices[i][0]``: a tuple of RenderStates. Kept for parity
-    with the JAX package's API; no entry point of the port calls it, since
-    the temporal pipeline runs on the state's device."""
+    """The partitioned state: the state's (W, H, ...) buffers split into
+    'dp' blocks of W/dp rows, block i on ``mesh.devices[i][0]``, as a tuple
+    of RenderStates (each with the state's ``spp`` and ``frame``)."""
     dp = mesh.shape["dp"]
     w = state.color.shape[0]
     if w % dp:
@@ -129,7 +148,7 @@ def shard_state(state: pipeline.RenderState, mesh: Mesh):
 
     def part(x, i):
         if isinstance(x, torch.Tensor):
-            return x[i * rows:(i + 1) * rows].to(mesh.devices[i][0])
+            return _move(x[i * rows:(i + 1) * rows], mesh.devices[i][0])
         if isinstance(x, dict):
             return {k: part(v, i) for k, v in x.items()}
         if isinstance(x, tuple):
@@ -142,73 +161,163 @@ def shard_state(state: pipeline.RenderState, mesh: Mesh):
         for i in range(dp))
 
 
+def block_bounds(state):
+    """The image rows [lo, hi) of each block of a partitioned state."""
+    bounds, lo = [], 0
+    for block in state:
+        hi = lo + block.color.shape[0]
+        bounds.append((lo, hi))
+        lo = hi
+    return bounds
+
+
+def rows(parts, bounds, get, lo, hi, device):
+    """The image's rows [lo, hi) of the buffer that ``get`` takes from each
+    block's part (a block's RenderState, or its post-trace buffers), the
+    blocks holding the rows ``bounds``, fetched from every block that holds
+    some of them onto ``device``."""
+    pieces = []
+    for part, (a, b) in zip(parts, bounds):
+        if max(lo, a) < min(hi, b):
+            pieces.append(_move(get(part)[max(lo, a) - a:min(hi, b) - a],
+                                device))
+    if not pieces:
+        x = get(parts[0])
+        return x.new_empty((0,) + tuple(x.shape[1:]), device=device)
+    return pieces[0] if len(pieces) == 1 else torch.cat(pieces)
+
+
+def gather_state(state, device=None) -> pipeline.RenderState:
+    """One RenderState of a partitioned state, on ``device`` (default: the
+    first block's); a RenderState is returned as it is, or moved there."""
+    if not isinstance(state, tuple):
+        return state if device is None else _to(state, device)
+    device = torch.device(device) if device is not None else \
+        state[0].color.device
+    bounds = block_bounds(state)
+    w = bounds[-1][1]
+
+    def cat(get):
+        return rows(state, bounds, get, 0, w, device)
+
+    fields = {}
+    for f in dataclasses.fields(pipeline.RenderState):
+        v = getattr(state[0], f.name)
+        if isinstance(v, torch.Tensor):
+            v = cat(lambda s, n=f.name: getattr(s, n))
+        elif f.name == "reservoirs" and v is not None:
+            v = tuple({k: cat(lambda s, i=i, k=k: s.reservoirs[i][k])
+                       for k in slot} for i, slot in enumerate(v))
+        fields[f.name] = v
+    return pipeline.RenderState(**fields)
+
+
 def _cat(parts, device):
     """Concatenate per-shard outputs (tensors, dicts, tuples of them) along
     the lanes, on ``device``."""
     x = parts[0]
     if isinstance(x, torch.Tensor):
-        return torch.cat([p.to(device) for p in parts])
+        return torch.cat([_move(p, device) for p in parts])
     if isinstance(x, dict):
         return {k: _cat([p[k] for p in parts], device) for k in x}
     items = (_cat([p[i] for p in parts], device) for i in range(len(x)))
     return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
 
 
-def make_sharded_trace(mesh: Mesh):
-    """A drop-in for ``render.pathtracer.trace_sample`` that splits the
-    wavefront's lanes (with their sample keys and jitter) into contiguous
-    chunks, one per device of the grid, traces every chunk on its device,
-    all enqueued before any is gathered, and concatenates the outputs on
-    the lanes' device. Per-lane outputs are those of the plain trace: the
-    random numbers are keyed on global pixel ids, and the sorted route sorts
-    within a chunk. When the lanes do not divide, the plain trace runs.
-    Cached per mesh."""
-    if mesh._trace_fn is not None:
-        return mesh._trace_fn
-    shards = mesh.flat
+def make_sharded_trace(mesh: Mesh, row: int):
+    """A drop-in for ``render.pathtracer.trace_sample`` for block ``row``'s
+    wavefront: it splits the lanes (with their sample keys and jitter) into
+    contiguous chunks, one per device of ``mesh.devices[row]``, traces
+    every chunk on its device with the replicas of the scene and params it
+    is given, all enqueued before any is gathered, and concatenates the
+    outputs on the lanes' device. Per-lane outputs are those of the plain
+    trace: the random numbers are keyed on global pixel ids, and the sorted
+    route unsorts what it sorts within a chunk. When the lanes do not
+    divide, the lanes' device traces them all. Cached per mesh and row."""
+    if row in mesh._trace_fns:
+        return mesh._trace_fns[row]
+    shards = mesh.devices[row]
 
     def trace_fn(cfg, scene, params, u, v, sample_keys, jitter_u,
                  camera_is_moving=False, render_scale=1.0):
         n = u.shape[0]
-        if n % len(shards):
-            return trace_sample(cfg, scene, params, u, v, sample_keys,
-                                jitter_u, camera_is_moving, render_scale)
-        c = n // len(shards)
+        devs = shards if n % len(shards) == 0 else (u.device,)
+        c = n // len(devs)
         scenes, ps = replicate(scene, mesh), replicate(params, mesh)
 
         def part(x, i, dev):
             if isinstance(x, torch.Tensor) and x.dim():
-                return x[i * c:(i + 1) * c].to(dev)
+                return _move(x[i * c:(i + 1) * c], dev)
             return _to(x, dev)
 
         inputs = [(dev, tuple(part(x, i, dev) for x in (u, v)),
                    tuple(part(x, i, dev) for x in sample_keys),
                    tuple(part(x, i, dev) for x in jitter_u))
-                  for i, dev in enumerate(shards)]
+                  for i, dev in enumerate(devs)]
         outs = []
         for dev, (su, sv), sk, sj in inputs:
             with _on(dev):
                 outs.append(trace_sample(cfg, scenes[dev], ps[dev], su, sv,
                                          sk, sj, camera_is_moving,
                                          render_scale))
-        return _cat(outs, u.device)
+        return outs[0] if len(outs) == 1 else _cat(outs, u.device)
 
-    mesh._trace_fn = trace_fn
+    mesh._trace_fns[row] = trace_fn
     return trace_fn
 
 
 def sharded_accumulate_n(cfg, scene, params, state, key, camera_is_moving,
                          render_scale, n_samples, mesh: Mesh):
-    """``pipeline.accumulate_n`` with a still frame's trace split over the
-    mesh. A moving frame runs unsharded: a moving frame is latency-bound
-    (half resolution, one sample) and reprojects history from arbitrary
-    rows, so the JAX package runs it replicated. ``scene``, ``params`` and
-    ``state`` live on one device, where the GRIS pass and the temporal
-    pipeline run."""
-    trace_fn = None if camera_is_moving else make_sharded_trace(mesh)
-    return pipeline.accumulate_n(cfg, scene, params, state, key,
-                                 camera_is_moving, render_scale, n_samples,
-                                 trace_fn=trace_fn)
+    """``pipeline.accumulate_n`` over the mesh. ``state``: a RenderState on
+    one device or a partitioned state. Still frames run partitioned over
+    'dp' (the module's docstring) and return the partitioned state; a
+    moving frame runs unpartitioned on the scene's device, where a
+    partitioned state is gathered first, and returns a RenderState there:
+    a moving frame is latency-bound (half resolution, one sample) and
+    reprojects history from arbitrary rows, so the JAX package runs it
+    replicated. ``scene`` and ``params`` live on one device; every other
+    device of the mesh gets its replica once per render."""
+    if camera_is_moving:
+        return pipeline.accumulate_n(
+            cfg, scene, params, gather_state(state, scene.occ_words.device),
+            key, True, render_scale, n_samples)
+    dp = mesh.shape["dp"]
+    if not isinstance(state, tuple):
+        state = shard_state(state, mesh)
+    devs = [mesh.devices[i][0] for i in range(dp)]
+    if [b.color.device for b in state] != devs:
+        raise ValueError("sharded_accumulate_n: the partitioned state's "
+                         "blocks are not on the mesh's 'dp' devices")
+    bounds = block_bounds(state)
+    scenes, ps = replicate(scene, mesh), replicate(params, mesh)
+    wfs = [pipeline.wavefront_constants(cfg, render_scale, d, rows=b)
+           for d, b in zip(devs, bounds)]
+    k = max(1, cfg.samples_per_launch)
+    pin = any(d.type == "cuda" for d in devs)
+    for j in range(-(-n_samples // k)):
+        lkey = fold_in(key, j)
+        keys = pipeline.launch_keys(lkey, k, pin)
+        # every block's trace is enqueued before any block resolves
+        frames = []
+        for i, dev in enumerate(devs):
+            with _on(dev):
+                frames.append(pipeline.trace_frame(
+                    cfg, scene, params, state[i], keys, False, render_scale,
+                    wfs[i], make_sharded_trace(mesh, i), lo=bounds[i][0]))
+
+        def halo_on(dev):
+            return lambda get, a, b: rows(frames, bounds, get, a, b, dev)
+
+        blocks = []
+        for i, dev in enumerate(devs):
+            with _on(dev):
+                blocks.append(pipeline.resolve_frame(
+                    cfg, scenes[dev], ps[dev], state[i], frames[i], lkey,
+                    False, render_scale, lo=bounds[i][0],
+                    halo=halo_on(dev)))
+        state = tuple(blocks)
+        del frames, blocks
+    return state
 
 
 def parallel_render(cfg, scene, params, key, spp, mesh: Mesh,

@@ -6,7 +6,10 @@ All frame-persistent buffers live in an explicit :class:`RenderState`;
 GRIS] -> temporal prepass -> temporal filter -> specular temporal filter). With
 ``render_scale`` below 1 only the active top-left region is traced and
 filtered; the rest of every buffer keeps its old contents. ``accumulate_n``
-is a Python loop of launches. The JAX package's arrays are immutable; here
+is a Python loop of launches. A launch is ``trace_frame`` then
+``resolve_frame``; both also run on a block of the image's rows, with the
+image's pixel coordinates, which is how parallel.sharding partitions a
+still frame over devices. The JAX package's arrays are immutable; here
 each launch builds new buffers and drops the old ones, so no state is
 shared between a caller's RenderState and the next one.
 
@@ -18,6 +21,7 @@ run of rays is a tight screen tile and pixel ids match the JAX package's.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import torch
@@ -71,9 +75,14 @@ def init_state(cfg, device) -> RenderState:
         gbuff_prev_normals=f(w, h, 2, dtype=torch.float16))
 
 
-def reset_framebuffer(state: RenderState) -> RenderState:
+def reset_framebuffer(state):
     """renderer/pathtracer.py:664-668: restart the accumulation; the
-    G-buffers and the frame counter stay."""
+    G-buffers and the frame counter stay. A partitioned state
+    (parallel.sharding) is gathered first."""
+    if isinstance(state, tuple):
+        from voxelrt_torch.parallel.sharding import gather_state
+
+        state = gather_state(state)
     return dataclasses.replace(
         state, history=torch.zeros_like(state.history),
         history_spec=torch.zeros_like(state.history_spec),
@@ -105,10 +114,12 @@ def _pixel_uv_from_index(w, h, pix):
         torch.float32)
 
 
-def _untile(w, h, x):
-    """Inverse of the tile ordering: (N, ...) -> (W, H, ...)."""
+def _untile(w, h, x, tiled=None):
+    """Inverse of the tile ordering: (N, ...) -> (W, H, ...). ``tiled``:
+    whether the lanes are in tile order (by default, whether a w×h image
+    tiles); a block of an image's rows keeps its image's order."""
     rest = tuple(x.shape[1:])
-    if _use_tiles(w, h):
+    if _use_tiles(w, h) if tiled is None else tiled:
         x = x.reshape((w // TILE_W, h // TILE_H, TILE_W, TILE_H) + rest)
         x = x.transpose(1, 2)
     return x.reshape((w, h) + rest)
@@ -120,16 +131,33 @@ def active_res(cfg, render_scale):
     return max(int(w * render_scale), 1), max(int(h * render_scale), 1)
 
 
-def wavefront_constants(cfg, render_scale, device):
+def active_rows(aw, lo, rows):
+    """How many of the rows [lo, lo + rows) lie in the active region."""
+    return max(0, min(lo + rows, aw) - lo)
+
+
+def wavefront_constants(cfg, render_scale, device, rows=None):
     """Per-launch constants derived from the flat ray index over the ACTIVE
     aw×ah grid: the pixel (u, v) of each of the k·n rays and the sample
-    each ray belongs to."""
+    each ray belongs to.
+
+    ``rows``: a block (lo, hi) of the buffers' rows (default: all). Its
+    rays are its active pixels', each sample's in the image's order, with
+    the image's pixel coordinates. Tile order runs through 16-row tile
+    columns first, so a block whose bounds are multiples of TILE_W holds
+    the contiguous pixel ids [lo·ah, (lo + ra)·ah) of every sample, as
+    column order does for any bounds; other bounds of a tiled grid raise."""
     aw, ah = active_res(cfg, render_scale)
+    lo, hi = rows if rows is not None else (0, cfg.image_res[0])
+    ra = active_rows(aw, lo, hi - lo)
+    if ra and _use_tiles(aw, ah) and (lo % TILE_W or ra % TILE_W):
+        raise ValueError(f"rows [{lo}, {hi}) of a {aw}x{ah} tiled grid do "
+                         f"not fall on {TILE_W}-row tile columns")
     k = max(1, cfg.samples_per_launch)
-    n = aw * ah
+    n = ra * ah
     ridx = torch.arange(k * n, dtype=torch.int64, device=device)
-    s_of_ray = ridx // n
-    u, v = _pixel_uv_from_index(aw, ah, ridx - s_of_ray * n)
+    s_of_ray = ridx // max(n, 1)
+    u, v = _pixel_uv_from_index(aw, ah, lo * ah + ridx - s_of_ray * n)
     return u, v, s_of_ray
 
 
@@ -145,40 +173,60 @@ def sample_keys_of(key, k_samples):
     return skeys, jit
 
 
-def accumulate(cfg, scene, params, state: RenderState, key,
-               camera_is_moving: bool = False, render_scale: float = 1.0,
-               wf=None, trace_fn=None) -> RenderState:
-    """One progressive frame for every active pixel:
-    ``cfg.samples_per_launch`` path samples traced as ONE wavefront of k·n
-    rays, averaged, and blended into the history with weight k
-    (renderer/pathtracer.py:1310-1319).
+def launch_keys(key, k_samples, pin=False):
+    """A launch's sample keys as a (2, k) int64 tensor and their jitter
+    uniforms as (k, 2) float32, on the host; ``pin``: in page-locked
+    memory, from which an upload to a card does not wait for it."""
+    skeys, jit = sample_keys_of(key, k_samples)
+    keys = torch.tensor([[sk[0] for sk in skeys], [sk[1] for sk in skeys]],
+                        dtype=torch.int64)
+    if pin:
+        keys, jit = keys.pin_memory(), jit.pin_memory()
+    return keys, jit
 
-    Render scaling traces ONLY the active-res wavefront and embeds the
-    results into the top-left of the full-res buffers (the reference masks
-    out-of-area threads instead, renderer/pathtracer.py:289-291). Pixel ids,
-    and so the per-pixel random streams, are unchanged.
 
-    ``trace_fn``: optional replacement for :func:`trace_sample` with the
-    same signature and the same per-lane outputs; parallel.sharding passes
-    one that traces the wavefront's lanes on several devices."""
-    w, h = cfg.image_res
+def trace_frame(cfg, scene, params, state: RenderState, keys,
+                camera_is_moving, render_scale, wf, trace_fn=None, lo=0):
+    """The render pass of one launch on the state's rows [lo, lo + rows)
+    (a block of a partitioned frame; the whole image when ``lo`` is 0 and
+    the state holds every row): ``cfg.samples_per_launch`` path samples of
+    each active pixel traced as ONE wavefront (``wf``, the block's
+    ``wavefront_constants``; ``keys``, the launch's ``launch_keys``) and
+    averaged, then embedded into the rows' buffers. Returns the post-trace
+    buffers: ``color``, ``color_spec``, ``gbuffer`` (a dict) and
+    ``reservoir`` (ReSTIR's raw input reservoir images, else None).
+    ``trace_fn``: a replacement for :func:`trace_sample` with the same
+    signature and the same per-lane outputs, as parallel.sharding's trace
+    of a block's lanes over several devices is."""
+    h = cfg.image_res[1]
     aw, ah = active_res(cfg, render_scale)
-    scaled = (aw, ah) != (w, h)
+    rows = state.color.shape[0]
+    ra = active_rows(aw, lo, rows)
+    scaled = (ra, ah) != (rows, h)
     dev = state.color.device
     k = max(1, cfg.samples_per_launch)
     if cfg.use_restir_pt and k != 1:
         # the GRIS pass consumes one reservoir per pixel
         raise ValueError("samples_per_launch must be 1 with ReSTIR-PT")
-    n = aw * ah
-    u, v, s_of_ray = wf if wf is not None else wavefront_constants(
-        cfg, render_scale, dev)
-    skeys, jit = sample_keys_of(key, k)
-    keys = torch.tensor([[sk[0] for sk in skeys], [sk[1] for sk in skeys]],
-                        dtype=torch.int64)
-    if dev.type == "cuda":
-        # from page-locked memory the upload does not wait for the card
-        keys, jit = keys.pin_memory(), jit.pin_memory()
-    k0, k1 = keys.to(dev, non_blocking=True)
+    gb_old = dict(
+        normals=state.gbuff_normals, depth=state.gbuff_depth,
+        depth_reflection=state.gbuff_depth_reflection,
+        position=state.gbuff_position, mat_id=state.gbuff_mat_id)
+    prev = dict(prev_depth=state.gbuff_prev_depth,
+                prev_normals=state.gbuff_prev_normals)
+    if ra == 0:
+        # rows outside the active region keep their buffers (below), and
+        # their reservoir images are the embedding's zeros
+        reservoir = None
+        if cfg.use_restir_pt:
+            reservoir = {name: torch.zeros_like(x)
+                         for name, x in state.reservoirs[0].items()}
+        return dict(color=state.color, color_spec=state.color_spec,
+                    gbuffer={**gb_old, **prev}, reservoir=reservoir)
+    n = ra * ah
+    u, v, s_of_ray = wf
+    key_t, jit = keys
+    k0, k1 = key_t.to(dev, non_blocking=True)
     ju = jit.to(dev, non_blocking=True)
     out = (trace_fn or trace_sample)(cfg, scene, params, u, v,
                        (k0[s_of_ray], k1[s_of_ray]),
@@ -193,16 +241,17 @@ def accumulate(cfg, scene, params, state: RenderState, key,
 
     diffuse = V3(*(sample_mean(c) for c in out["diffuse"]))
     specular = V3(*(sample_mean(c) for c in out["specular"]))
+    tiled = _use_tiles(aw, ah)
 
     def img(x):
         if isinstance(x, tuple):  # V3 or the octahedral normal pair
             return torch.stack([img(c) for c in x], dim=-1)
-        a = _untile(aw, ah, x[:n])
+        a = _untile(ra, ah, x[:n], tiled)
         if not scaled:
             return a
-        full = torch.zeros((w, h) + tuple(a.shape[2:]), dtype=a.dtype,
+        full = torch.zeros((rows, h) + tuple(a.shape[2:]), dtype=a.dtype,
                            device=dev)
-        full[:aw, :ah] = a
+        full[:ra, :ah] = a
         return full
 
     # Out-of-area pixels keep their previous buffers (the reference's
@@ -213,43 +262,74 @@ def accumulate(cfg, scene, params, state: RenderState, key,
         m = inside[..., None] if new.dim() == 3 else inside
         return torch.where(m, new, old)
 
-    color = sel(img(diffuse), state.color)
-    color_spec = sel(img(specular), state.color_spec)
-    gbuffer = dict(
-        normals=sel(img(out["gbuff_normals"]), state.gbuff_normals),
-        depth=sel(img(out["gbuff_depth"]), state.gbuff_depth),
-        depth_reflection=sel(img(out["gbuff_depth_reflection"]),
-                             state.gbuff_depth_reflection),
-        position=sel(img(out["gbuff_position"]), state.gbuff_position),
-        mat_id=sel(img(out["gbuff_mat_id"]), state.gbuff_mat_id),
-        prev_depth=state.gbuff_prev_depth,
-        prev_normals=state.gbuff_prev_normals,
-    )
+    gbuffer = {name: sel(img(out[f"gbuff_{name}"]), old)
+               for name, old in gb_old.items()}
+    gbuffer.update(prev)
+    reservoir = None
+    if cfg.use_restir_pt:
+        reservoir = {name: img(x) for name, x in out["reservoir"].items()}
+    return dict(color=sel(img(diffuse), state.color),
+                color_spec=sel(img(specular), state.color_spec),
+                gbuffer=gbuffer, reservoir=reservoir)
+
+
+def resolve_frame(cfg, scene, params, state: RenderState, frame, key,
+                  camera_is_moving, render_scale, lo=0, halo=None
+                  ) -> RenderState:
+    """The rest of one launch on the state's rows [lo, lo + rows): [the
+    spatial GRIS pass] -> temporal prepass -> temporal filter -> specular
+    temporal filter (renderer/pathtracer.py:1310-1319), from ``frame``,
+    this launch's ``trace_frame`` of those rows, and ``key``, the launch's
+    key. ``halo(get, a, b)``: the image's rows [a, b) of the post-trace
+    buffer ``get`` takes from a frame, on the state's device (default: from
+    ``frame``, which must then hold them). The GRIS taps reach
+    ceil(restir_radius) rows each side (a tap's offset is below the
+    radius, restir.py), the prepass's 4×4 window 1 row before and 2 after.
+    A moving frame runs on the whole image only."""
+    w, h = cfg.image_res
+    rows = state.color.shape[0]
+    hi = lo + rows
+    if camera_is_moving and (lo, rows) != (0, w):
+        raise ValueError("a moving frame runs on the whole image")
+    if halo is None:
+        def halo(get, a, b):
+            return get(frame)[a - lo:b - lo]
+    k = max(1, cfg.samples_per_launch)
+    color, color_spec = frame["color"], frame["color_spec"]
+    gbuffer = dict(frame["gbuffer"])
     reservoirs = state.reservoirs
     if cfg.use_restir_pt:
         from voxelrt_torch.render.restir import spatial_gris
 
-        reservoir_img = {name: img(x) for name, x in out["reservoir"].items()}
-        del out
+        r = math.ceil(cfg.restir_radius)
+        a, b = max(0, lo - r), min(w, hi + r)
+        res_ext = {name: halo(lambda f, n=name: f["reservoir"][n], a, b)
+                   for name in frame["reservoir"]}
+        gbuf_ext = {name: halo(lambda f, n=name: f["gbuffer"][n], a, b)
+                    for name in ("normals", "depth", "mat_id")}
         color, color_spec, reservoirs = spatial_gris(
-            cfg, scene, params, reservoir_img, color, color_spec, gbuffer,
-            state.frame, fold_in(key, 7777), camera_is_moving, render_scale)
-        del reservoir_img
-    else:
-        del out
+            cfg, scene, params, res_ext, color, color_spec, gbuf_ext,
+            state.frame, fold_in(key, 7777), camera_is_moving, render_scale,
+            lo=lo, ext_lo=a)
+        del res_ext, gbuf_ext
+
+    def refl(f):
+        return f["gbuffer"]["depth_reflection"]
 
     color, color_spec, refl_depth = temporal.temporal_prepass(
-        cfg, color, color_spec, gbuffer["depth_reflection"], render_scale)
+        cfg, color, color_spec, gbuffer["depth_reflection"], render_scale,
+        lo=lo, halo=(halo(refl, max(0, lo - 1), lo),
+                     halo(refl, hi, min(w, hi + 2))))
     gbuffer["depth_reflection"] = refl_depth
 
     color, history = temporal.temporal_filter(
         cfg, params, color, state.history, gbuffer, render_scale,
-        camera_is_moving, sample_weight=float(k))
+        camera_is_moving, sample_weight=float(k), lo=lo)
     color, history_spec, history_spec_depth = \
         temporal.temporal_filter_specular(
             cfg, params, color, color_spec, state.history_spec,
             state.history_spec_depth, gbuffer, render_scale,
-            camera_is_moving, sample_weight=float(k))
+            camera_is_moving, sample_weight=float(k), lo=lo)
 
     return RenderState(
         color=color, color_spec=color_spec, history=history,
@@ -262,20 +342,48 @@ def accumulate(cfg, scene, params, state: RenderState, key,
         spp=state.spp + k, frame=state.frame + 1)
 
 
+def accumulate(cfg, scene, params, state: RenderState, key,
+               camera_is_moving: bool = False, render_scale: float = 1.0,
+               wf=None) -> RenderState:
+    """One progressive frame for every active pixel:
+    ``cfg.samples_per_launch`` path samples traced as ONE wavefront of k·n
+    rays, averaged, and blended into the history with weight k
+    (renderer/pathtracer.py:1310-1319): ``trace_frame`` then
+    ``resolve_frame`` on the whole image.
+
+    Render scaling traces ONLY the active-res wavefront and embeds the
+    results into the top-left of the full-res buffers (the reference masks
+    out-of-area threads instead, renderer/pathtracer.py:289-291). Pixel ids,
+    and so the per-pixel random streams, are unchanged."""
+    dev = state.color.device
+    if wf is None:
+        wf = wavefront_constants(cfg, render_scale, dev)
+    keys = launch_keys(key, max(1, cfg.samples_per_launch),
+                       pin=dev.type == "cuda")
+    frame = trace_frame(cfg, scene, params, state, keys, camera_is_moving,
+                        render_scale, wf)
+    return resolve_frame(cfg, scene, params, state, frame, key,
+                         camera_is_moving, render_scale)
+
+
 def accumulate_n(cfg, scene, params, state, key, camera_is_moving=False,
-                 render_scale=1.0, n_samples: int = 1, trace_fn=None):
+                 render_scale=1.0, n_samples: int = 1):
     """Accumulate ``n_samples`` path samples: ceil(n_samples /
-    samples_per_launch) launches, launch i keyed by fold_in(key, i);
-    ``trace_fn`` as in :func:`accumulate`."""
+    samples_per_launch) launches, launch i keyed by fold_in(key, i)."""
     k = max(1, cfg.samples_per_launch)
     wf = wavefront_constants(cfg, render_scale, state.color.device)
     for i in range(-(-n_samples // k)):
         state = accumulate(cfg, scene, params, state, fold_in(key, i),
-                           camera_is_moving, render_scale, wf=wf,
-                           trace_fn=trace_fn)
+                           camera_is_moving, render_scale, wf=wf)
     return state
 
 
-def fetch_image(cfg, state: RenderState, exposure, render_scale=1.0):
-    """Tonemapped LDR image (renderer/pathtracer.py:1321-1323, 634-662)."""
+def fetch_image(cfg, state, exposure, render_scale=1.0):
+    """Tonemapped LDR image (renderer/pathtracer.py:1321-1323, 634-662). A
+    partitioned state (parallel.sharding) is gathered first: the vignette
+    reads global pixel coordinates."""
+    if isinstance(state, tuple):
+        from voxelrt_torch.parallel.sharding import gather_state
+
+        state = gather_state(state)
     return render_to_image(state.color, cfg, exposure, render_scale)

@@ -269,7 +269,8 @@ def _dist(x1: V3, params):
 
 
 def spatial_gris(cfg, scene, params, reservoir_img, color, color_spec,
-                 gbuffer, frame, key, camera_is_moving, render_scale):
+                 gbuffer, frame, key, camera_is_moving, render_scale, lo=0,
+                 ext_lo=0):
     """Spatial GRIS resampling pass (renderer/pathtracer.py:815-989).
 
     Takes the render pass's per-pixel input reservoirs (``reservoir_img``,
@@ -278,42 +279,61 @@ def spatial_gris(cfg, scene, params, reservoir_img, color, color_spec,
     the winner with a shadow ray and writes the resolved diffuse/specular.
     ``frame``: the frame counter (an int) seeding the spiral's angle;
     ``key``: the (k0, k1) key of the pass's threefry draws. Returns (color,
-    color_spec, (the quantized input reservoirs, the output reservoirs))."""
+    color_spec, (the quantized input reservoirs, the output reservoirs)).
+
+    On a block of the image's rows (a device's share of a partitioned
+    frame): ``color`` and ``color_spec`` hold the rows [lo, lo + rows),
+    ``reservoir_img`` and ``gbuffer`` the rows from ``ext_lo`` on that the
+    taps reach (the block's, and up to ceil(restir_radius) halo rows each
+    side: a tap's offset is below the radius). Pixel coordinates, hashes,
+    clamps and threefry counters are the image's, so a block's pixels get
+    the whole-image pass's values bit for bit."""
     from voxelrt_torch.render.pathtracer import next_hit
 
     w, h = cfg.image_res
-    n = w * h
+    rows = color.shape[0]
+    n = rows * h
+    off = (lo - ext_lo) * h  # the block's first pixel in the ext buffers
     dev = color.device
     max_taps = cfg.restir_taps
     max_radius = cfg.restir_radius
 
     # Input reservoirs, quantized like the storage write at
-    # pathtracer.py:607.
-    res_img = encode_reservoir(reservoir_img)
-    center = {k: x.reshape((n,) + tuple(x.shape[2:]))
-              for k, x in res_img.items()}
+    # pathtracer.py:607; the shift's source terms and the materials are
+    # per pixel, computed once for every row the taps reach.
+    res_ext = encode_reservoir(reservoir_img)
+    ext = {k: x.reshape((-1,) + tuple(x.shape[2:]))
+           for k, x in res_ext.items()}
+    ext_src = shift_source(cfg, scene, params, _sample_v3(ext))
+    center = _take(ext, slice(off, off + n))
     center_z = _sample_v3(center)
-    center_src = shift_source(cfg, scene, params, center_z)
+    center_src = _take(ext_src, slice(off, off + n))
 
-    pix = torch.arange(n, dtype=torch.int64, device=dev)
-    ui, vi = pix // h, pix % h
+    pix = torch.arange(lo * h, lo * h + n, dtype=torch.int64, device=dev)
+    ui, vi = pix // h, pix % h  # the image's pixel coordinates
+    ur = ui - ext_lo  # the row in the ext buffers
     inv_w, inv_h = (torch.full((), 1.0 / r, dtype=torch.float32, device=dev)
                     for r in (w, h))
 
     def texcoord(x, y):
-        return ((x.to(torch.float32) + 0.5) * inv_w / render_scale,
+        # x: an ext row; x + ext_lo + 0.5 is exact in float32 either way
+        return ((x.to(torch.float32) + (ext_lo + 0.5)) * inv_w / render_scale,
                 (y.to(torch.float32) + 0.5) * inv_h / render_scale)
 
     depth_img = gbuffer["depth"]
     normals_img = gbuffer["normals"]
     mat_img = gbuffer["mat_id"]
-    center_x1 = _world_pos(texcoord(ui, vi), depth_img.reshape(-1), params)
+    center_x1 = _world_pos(texcoord(ur, vi),
+                           depth_img.reshape(-1)[off:off + n], params)
     center_dist = _dist(center_x1, params)
     center_n1 = v3.load(packing.decode_unit_vector_3x16(
-        normals_img.reshape(-1, 2)))
+        normals_img.reshape(-1, 2)[off:off + n]))
     sky_px = is_vec_zero(center_x1)
-    cmat_id, calbedo = packing.decode_material_word_soa(mat_img.reshape(-1))
-    center_mat = fetch_material(scene.mat_params, cmat_id, calbedo)
+    mat_id_ext, albedo_ext = packing.decode_material_word_soa(
+        mat_img.reshape(-1))
+    ext_mat = fetch_material(scene.mat_params, mat_id_ext, albedo_ext)
+    cmat_id = mat_id_ext[off:off + n]
+    center_mat = _take(ext_mat, slice(off, off + n))
     center_f = center_z["F"]
     center_m = center["M"]
 
@@ -322,7 +342,7 @@ def spatial_gris(cfg, scene, params, reservoir_img, color, color_spec,
     seed = hash3(ui >> 3, vi >> 3, (2 * int(frame)) & 0xFFFFFFFF)
     angle_shift = ((seed & 0x007FFFFF) | 0x3F800000).to(torch.float32) \
         / 4294967295.0 * math.pi
-    radius_shift = uniform(fold_in(key, 17), (n,), dev)
+    radius_shift = uniform(fold_in(key, 17), (n,), dev, offset=lo * h)
 
     out_res = {k: torch.zeros_like(x) for k, x in center.items()
                if k in SAMPLE_FIELDS}
@@ -346,32 +366,33 @@ def spatial_gris(cfg, scene, params, reservoir_img, color, color_spec,
         ox = (torch.cos(angle) * offset_radius).to(torch.int64)
         oy = (torch.sin(angle) * offset_radius).to(torch.int64)
         nonzero = (ox != 0) | (oy != 0)
-        tx = ui + ox
+        tx = ur + ox
         ty = vi + oy
-        # _gather_px clamps (restir.py:239-244); the tap's texture
-        # coordinate does not
-        idx = torch.clamp(tx, 0, w - 1) * h + torch.clamp(ty, 0, h - 1)
+        # _gather_px clamps to the image (restir.py:239-244); the tap's
+        # texture coordinate does not
+        idx = torch.clamp(tx, -ext_lo, w - 1 - ext_lo) * h + torch.clamp(
+            ty, 0, h - 1)
 
         nb_n1 = v3.load(packing.decode_unit_vector_3x16(
             _gather_px(normals_img, idx)))
         nb_x1 = _world_pos(texcoord(tx, ty), _gather_px(depth_img, idx),
                            params)
         nb_dist = _dist(nb_x1, params)
-        nb_res = {k: _gather_px(x, idx) for k, x in res_img.items()}
+        nb_res = {k: _gather_px(x, idx) for k, x in res_ext.items()}
         nb_z = _sample_v3(nb_res)
 
         gate = nonzero & ~(
             (torch.abs(nb_dist - center_dist) > 0.1 * center_dist)
             | (dot(center_n1, nb_n1) < 0.5))
 
-        nb_mat = _take(center_mat, idx)
+        nb_mat = _take(ext_mat, idx)
 
         # Shift the centre's sample into the neighbour's domain and the
         # neighbour's into the centre's.
         c_d, c_s, c_jac = shift(cfg, params, nb_x1, nb_n1, nb_mat, center_z,
                                 center_src)
         s_d, s_s, jac = shift(cfg, params, center_x1, center_n1, center_mat,
-                              nb_z, _take(center_src, idx))
+                              nb_z, _take(ext_src, idx))
         nb_m = nb_res["M"]
 
         center_p_hat = luminance(c_d + c_s) * c_jac
@@ -395,7 +416,7 @@ def spatial_gris(cfg, scene, params, reservoir_img, color, color_spec,
         # WRS merge (reservoir.py:77-87).
         out_m = out_m + torch.where(gate, nb_m, 0.0)
         new_weight = out_weight + in_w
-        u = uniform(fold_in(key, 100 + i), (n,), dev)
+        u = uniform(fold_in(key, 100 + i), (n,), dev, offset=lo * h)
         sel = (in_w > 0.0) & (u * new_weight <= in_w)
         out_weight = new_weight
         nb_res["F"] = v3.stack(s_f)
@@ -425,7 +446,7 @@ def spatial_gris(cfg, scene, params, reservoir_img, color, color_spec,
     in_w = center["weight"] * luminance(center_f) * canonical_mis_weight
     out_m = out_m + center_m
     new_weight = out_weight + in_w
-    u = uniform(fold_in(key, 55), (n,), dev)
+    u = uniform(fold_in(key, 55), (n,), dev, offset=lo * h)
     sel = ((in_w > 0.0) & (u * new_weight <= in_w)) | occluded
     out_weight = torch.where(in_w > 0.0, new_weight, out_weight)
     for k in out_res:
@@ -464,7 +485,9 @@ def spatial_gris(cfg, scene, params, reservoir_img, color, color_spec,
     out_res["M"] = out_m
     out_res["weight"] = out_weight
     stored = encode_reservoir(out_res)
-    slot_out = {k: x.reshape((w, h) + tuple(x.shape[1:]))
+    slot_out = {k: x.reshape((rows, h) + tuple(x.shape[1:]))
                 for k, x in stored.items()}
-    return (v3.stack(new_color).reshape(w, h, 3),
-            v3.stack(new_color_s).reshape(w, h, 3), (res_img, slot_out))
+    first = lo - ext_lo
+    slot_in = {k: x[first:first + rows] for k, x in res_ext.items()}
+    return (v3.stack(new_color).reshape(rows, h, 3),
+            v3.stack(new_color_s).reshape(rows, h, 3), (slot_in, slot_out))

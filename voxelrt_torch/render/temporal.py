@@ -31,34 +31,53 @@ from voxelrt_torch.ops.transforms import (
 )
 
 
-def _window_sum(img, active_w, active_h):
-    """Sum over the 4×4 window at offsets [-1, 2]² with zero padding,
-    restricted to the active region; returns (aw, ah, C)."""
-    x = img[:active_w, :active_h]
+def _window_sum(x, pad_rows):
+    """Sum over the 4×4 window at offsets [-1, 2]² with zero padding: ``x``
+    (R, ah[, C]) holds the rows the windows reach, ``pad_rows`` = (before,
+    after) the zero rows to add where those rows pass the active region's
+    edges. Returns (R + sum(pad_rows) - 3, ah, C)."""
     if x.dim() == 2:
         x = x[..., None]
-    p = F.pad(x.permute(2, 0, 1), (1, 2, 1, 2))  # (C, aw+3, ah+3)
-    s = torch.zeros_like(x.permute(2, 0, 1))
+    p = F.pad(x.permute(2, 0, 1), (1, 2) + tuple(pad_rows))
+    rows, ah = p.shape[1] - 3, x.shape[1]
+    s = torch.zeros((x.shape[2], rows, ah), dtype=x.dtype, device=x.device)
     for i in range(4):
         for j in range(4):
-            s = s + p[:, i:i + active_w, j:j + active_h]
+            s = s + p[:, i:i + rows, j:j + ah]
     return s.permute(1, 2, 0)
 
 
-def temporal_prepass(cfg, color, color_spec, refl_depth, render_scale):
+def temporal_prepass(cfg, color, color_spec, refl_depth, render_scale, lo=0,
+                     halo=None):
     """renderer/pathtracer.py:1020-1075 — returns (color, color_spec,
     refl_depth) with NaN scrubbing applied. The JAX version also returns the
     specular 4×4 mean and deviation; neither its still nor its moving
     filters read them (voxelrt/render/temporal.py:294-408), so the port
-    does not compute them."""
+    does not compute them.
+
+    On the image's rows [lo, lo + rows) (a block of a partitioned frame):
+    ``halo`` = (the reflection depths of the rows [lo - 1, lo), of the rows
+    [lo + rows, lo + rows + 2)), as far as the image has them; the window's
+    zero padding applies at the active region's edges only."""
     w, h = cfg.image_res
     aw = max(int(w * render_scale), 1)
     ah = max(int(h * render_scale), 1)
+    ra = max(0, min(lo + color.shape[0], aw) - lo)
+    if ra == 0:
+        return color, color_spec, refl_depth
+    before, after = halo if halo is not None else (refl_depth[:0],
+                                                   refl_depth[:0])
+    parts = [x for x in (before, refl_depth, after) if x.shape[0]]
+    ext = parts[0] if len(parts) == 1 else torch.cat(parts)
+    e0 = lo - before.shape[0]  # the image row of ext's first row
+    # the rows the windows reach, [lo - 1, lo + ra + 2), within the region
+    a, b = max(0, lo - 1), min(aw, lo + ra + 2)
+    pads = (a - (lo - 1), lo + ra + 2 - b)
 
-    rd = refl_depth[:aw, :ah]
+    rd = ext[a - e0:b - e0, :ah]
     valid = (rd != 0.0).to(torch.float32)
-    rd_sum = _window_sum(rd * valid, aw, ah)[..., 0]
-    rd_cnt = _window_sum(valid, aw, ah)[..., 0]
+    rd_sum = _window_sum(rd * valid, pads)[..., 0]
+    rd_cnt = _window_sum(valid, pads)[..., 0]
     rd_new = torch.where(rd_cnt > 0.01,
                          rd_sum / torch.clamp(rd_cnt, min=1e-20), 0.0)
 
@@ -67,20 +86,24 @@ def temporal_prepass(cfg, color, color_spec, refl_depth, render_scale):
         return torch.where(bad, 0.0, c)
 
     color = color.clone()
-    color[:aw, :ah] = scrub(color[:aw, :ah])
+    color[:ra, :ah] = scrub(color[:ra, :ah])
     color_spec = color_spec.clone()
-    color_spec[:aw, :ah] = scrub(color_spec[:aw, :ah])
+    color_spec[:ra, :ah] = scrub(color_spec[:ra, :ah])
     refl_depth = refl_depth.clone()
-    refl_depth[:aw, :ah] = rd_new
+    refl_depth[:ra, :ah] = rd_new
     return color, color_spec, refl_depth
 
 
-def _pixel_texcoords(cfg, render_scale, device):
+def _pixel_texcoords(cfg, render_scale, device, lo=0, rows=None):
+    """The screen coordinates of the image's rows [lo, lo + rows) (default:
+    every row), (rows, H, 2)."""
     w, h = cfg.image_res
-    ui = torch.arange(w, dtype=torch.float32, device=device)[:, None]
+    rows = w if rows is None else rows
+    ui = torch.arange(lo, lo + rows, dtype=torch.float32,
+                      device=device)[:, None]
     vj = torch.arange(h, dtype=torch.float32, device=device)[None, :]
-    tx = (ui.expand(w, h) + 0.5) / (w * render_scale)
-    ty = (vj.expand(w, h) + 0.5) / (h * render_scale)
+    tx = (ui.expand(rows, h) + 0.5) / (w * render_scale)
+    ty = (vj.expand(rows, h) + 0.5) / (h * render_scale)
     return torch.stack([tx, ty], dim=-1)
 
 
@@ -249,10 +272,13 @@ def _moving_taps(cfg, params, state_color, history, gbuffer, texcoord, rp,
         catmullrom=cfg.motion_filter != "bilinear", gate_depth=gate_depth)
 
 
-def _center(cfg, params, gbuffer, render_scale):
+def _center(cfg, params, gbuffer, render_scale, lo=0):
     """Per-pixel texcoords, the primary hit reconstructed from the G-buffer
-    depth, and the mask of pixels whose position is the origin (sky)."""
-    texcoord = _pixel_texcoords(cfg, render_scale, gbuffer["depth"].device)
+    depth, and the mask of pixels whose position is the origin (sky); the
+    G-buffer holds the image's rows from ``lo`` on."""
+    depth = gbuffer["depth"]
+    texcoord = _pixel_texcoords(cfg, render_scale, depth.device, lo,
+                                depth.shape[0])
     x1 = view_to_world(screen_to_view(texcoord, gbuffer["depth"],
                                       params.proj_inv), params.view_inv)
     skip = (x1[..., 0] * x1[..., 0] + x1[..., 1] * x1[..., 1]
@@ -278,12 +304,15 @@ def _blend(hist, current, w_sum, sample_weight, max_accum):
 
 
 def temporal_filter(cfg, params, state_color, history, gbuffer,
-                    render_scale, moving, sample_weight: float = 1.0):
+                    render_scale, moving, sample_weight: float = 1.0, lo=0):
     """Diffuse temporal filter (renderer/pathtracer.py:1185-1230).
     Returns (new_color, new_history). ``sample_weight`` is the number of
     fresh path samples averaged into ``state_color`` this frame; the history
-    weight advances by it so the accumulation stays an exact running mean."""
-    texcoord, center_x1, skip = _center(cfg, params, gbuffer, render_scale)
+    weight advances by it so the accumulation stays an exact running mean.
+    ``lo``: the image row of the buffers' first row (a still frame's block
+    of rows)."""
+    texcoord, center_x1, skip = _center(cfg, params, gbuffer, render_scale,
+                                        lo)
     if moving:
         center_n = packing.decode_unit_vector_3x16(gbuffer["normals"])
         rp = reproject(center_x1, params.prev_view, params.prev_proj)
@@ -309,10 +338,12 @@ def temporal_filter(cfg, params, state_color, history, gbuffer,
 
 def temporal_filter_specular(cfg, params, color, color_spec, history_spec,
                              history_spec_depth, gbuffer, render_scale, moving,
-                             sample_weight: float = 1.0):
+                             sample_weight: float = 1.0, lo=0):
     """Specular temporal filter (renderer/pathtracer.py:1242-1303).
-    Returns (color_with_specular, new_history_spec, new_history_spec_depth)."""
-    texcoord, center_x1, skip = _center(cfg, params, gbuffer, render_scale)
+    Returns (color_with_specular, new_history_spec, new_history_spec_depth);
+    ``lo`` as in :func:`temporal_filter`."""
+    texcoord, center_x1, skip = _center(cfg, params, gbuffer, render_scale,
+                                        lo)
     center_refl_depth = gbuffer["depth_reflection"]
     if moving:
         center_n = packing.decode_unit_vector_3x16(gbuffer["normals"])

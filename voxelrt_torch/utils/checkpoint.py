@@ -52,9 +52,14 @@ def _flatten(state: RenderState) -> dict:
     return out
 
 
-def save_render_state(path, state: RenderState, key, frame: int, extra=None):
+def save_render_state(path, state, key, frame: int, extra=None):
     """Write ``state``, the key ``(k0, k1)`` and ``frame`` (and ``extra``, a
-    dict of numbers such as the spp counter) to ``path``."""
+    dict of numbers such as the spp counter) to ``path``. A partitioned
+    state (parallel.sharding) is written gathered, as one RenderState."""
+    if isinstance(state, tuple):
+        from voxelrt_torch.parallel.sharding import gather_state
+
+        state = gather_state(state)
     arrays = _flatten(state)
     arrays["rng.key"] = np.asarray([int(key[0]), int(key[1])], np.uint32)
     arrays["meta.frame"] = np.asarray(int(frame))
