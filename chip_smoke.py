@@ -8,7 +8,8 @@ ReSTIR-PT with its spatial GRIS pass, the sorted route and the table draws;
 the loop-construct probe; checkpoint/resume, the native runtime, the
 portable traversal and multi-device rendering; and the benchmark harness
 ``bench_torch.py``, B1 on ``tools/trace_bench_torch.py``'s ray sets and the
-still frame partitioned at dp=8 and dp=32.
+still frame partitioned at dp=8 and dp=32; and example6 at full width held to
+the JAX package's golden image of it.
 
     python3 chip_smoke.py
 
@@ -77,7 +78,11 @@ on a sample of each set every output bit-equal to B1's twin; 28
 ``tools/multichip_report_torch.py``'s report at dp=8 (160-row blocks) and
 dp=32 (40-row blocks, off the tile columns): two launches of example6's
 still step, every field equal to one device's, halo rows and bytes, device
-ms and peak memory beside one device's; 16
+ms and peak memory beside one device's; 29 example6 at its default config
+(1280x720) with 16 samples in one launch through ``Scene.finish``, held to
+the JAX package's CPU render of the same
+(``tests/golden/torch_fullres/``) at RMSE 0.015, the examples' golden
+bar; 16
 example7's sky computed on the card at the default knobs into an
 empty temporary cache, then found there, and the same sky at test knobs on
 the card against the CPU; 17 every example through
@@ -124,6 +129,11 @@ N_MOVING, N_STILL = 24, 6
 B1_TWIN_SAMPLES = 4  # of a dispatch's 16 samples go through B1's slow twin
 EXAMPLE_SPP = 16
 EXAMPLE10_SKY_RES = 256  # its sky is computed at this size here, not 1024
+# Phase 29: the JAX package's example6 at 1280x720, one launch of 16 samples
+FULLRES_GOLDEN = os.path.join("tests", "golden", "torch_fullres",
+                              "example6_1280x720_16spp.png")
+FULLRES_SPL = 16
+FULLRES_BAR = 0.015
 RESTIR_SPP = 16  # one sample a launch on the ReSTIR path; the second half
 # of them gives its steady rate
 ROUTE_SPP = 32  # a timed turn of phase 19: two 16-sample launches
@@ -1897,6 +1907,62 @@ def phase_multichip_report(card, smi):
     return rep
 
 
+def phase_fullres_golden(smi):
+    """Phase 29: example6, unedited, at its default RenderConfig (1280x720)
+    with ``samples_per_launch=FULLRES_SPL``: one launch from the Scene's
+    default seed through ``Scene.finish`` on the card, the sky loaded from
+    ``data/skycache/`` (an empty ``sky_cache_dir`` must stay empty), held
+    to the JAX package's render of the same on the CPU
+    (``FULLRES_GOLDEN``, made by ``tests/test_torch_golden.py --regen``) at
+    RMSE ``FULLRES_BAR``, the bar of tests/test_examples_golden.py. Also
+    reported: the share of pixels whose channels all lie within 2/255, the
+    RMSE of the port's image rounded to 8 bits as the golden was, and the
+    pixels that differ most."""
+    import torch
+
+    from voxelrt_torch.ops import _cuda
+    from voxelrt_torch.utils.image import read_png, to_uint8_rows
+
+    golden = read_png(os.path.join(HERE, FULLRES_GOLDEN))
+    with tempfile.TemporaryDirectory() as cache:
+        scene = build_example("example6", None, sky_cache_dir=cache,
+                              samples_per_launch=FULLRES_SPL)
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        img = scene.finish(spp=FULLRES_SPL, save=False)
+        torch.cuda.synchronize()
+        finish_s = time.perf_counter() - t0
+        launches = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+        if os.listdir(cache):
+            fail("phase 29: the sky was recomputed, not loaded from "
+                 "data/skycache/")
+    if img.shape != golden.shape or not np.isfinite(img).all():
+        fail("phase 29: the image is not finite or has the wrong shape")
+    diff = np.abs(img - golden).max(-1)
+    rounded = to_uint8_rows(img)[::-1].transpose(1, 0, 2) / np.float32(255)
+    worst = np.argsort(diff, axis=None)[::-1][:16]
+    out = dict(
+        res=list(img.shape[:2]), spp=FULLRES_SPL, finish_s=finish_s,
+        rmse=float(np.sqrt(np.mean((img - golden) ** 2))),
+        rmse_8bit=float(np.sqrt(np.mean((rounded - golden) ** 2))),
+        within_2_255=float((diff <= 2 / 255).mean()),
+        beyond_2_255_pixels=int((diff > 2 / 255).sum()),
+        # the 8-bit RMSE with the pixels beyond 2/255 left out (their
+        # differences set to 0), so that the two parts add in quadrature
+        rmse_8bit_within=float(np.sqrt(np.mean(
+            np.where((diff <= 2 / 255)[..., None], rounded - golden, 0.0)
+            ** 2))),
+        max_abs=float(diff.max()), bar=FULLRES_BAR, launches=launches,
+        worst_pixels=[dict(u=int(u), v=int(v), port=img[u, v].tolist(),
+                           golden=golden[u, v].tolist())
+                      for u, v in zip(*np.unravel_index(worst, diff.shape))],
+        device=smi)
+    for k in ("traverse", "point_fetch", "bilinear_fetch_dirs"):
+        if not launches.get(k):
+            fail(f"phase 29: kernel {k} was not launched")
+    return out
+
+
 def main():
     import torch
 
@@ -2280,8 +2346,21 @@ def main():
     trace_bench = counted("27", phase_trace_bench, smi)
     multichip = counted("28", phase_multichip_report,
                         torch.device("cuda", 0), smi)
-    print(f"phases 22-28, seconds each: "
-          f"{json.dumps({k: phase_s[k] for k in map(str, range(22, 29))})}"
+
+    # -- 29. example6 at full width against the JAX package's golden --------
+    fullres = counted("29", phase_fullres_golden, smi)
+    print(f"full-width golden: example6 {fullres['res'][0]}x"
+          f"{fullres['res'][1]}, {fullres['spp']} spp in one launch, "
+          f"against the JAX package's CPU render: RMSE {fullres['rmse']:.6f} "
+          f"(bar {FULLRES_BAR}; the port's image rounded to 8 bits "
+          f"{fullres['rmse_8bit']:.6f}), {fullres['within_2_255']:.6f} of "
+          f"pixels within 2/255, largest difference {fullres['max_abs']:.4f}"
+          f", Scene.finish {fullres['finish_s']:.2f} s on {smi}", flush=True)
+    if not fullres["rmse"] <= FULLRES_BAR:
+        fail(f"phase 29: RMSE {fullres['rmse']} against the JAX package's "
+             f"golden is above {FULLRES_BAR}")
+    print(f"phases 22-29, seconds each: "
+          f"{json.dumps({k: phase_s[k] for k in map(str, range(22, 30))})}"
           f", launches: {json.dumps(phase_launches)}", flush=True)
 
     # -- 16. a full-size sky on the card; 17. every example ---------------------
@@ -2518,7 +2597,8 @@ def main():
                        native=native_rt, portable_traversal=portable,
                        multidevice=multidevice,
                        new_phase_launches=phase_launches, bench=bench,
-                       trace_bench=trace_bench, multichip_report=multichip),
+                       trace_bench=trace_bench, multichip_report=multichip,
+                       fullres_golden=fullres),
                   fh, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)
