@@ -9,7 +9,8 @@ the loop-construct probe; checkpoint/resume, the native runtime, the
 portable traversal and multi-device rendering; and the benchmark harness
 ``bench_torch.py``, B1 on ``tools/trace_bench_torch.py``'s ray sets and the
 still frame partitioned at dp=8 and dp=32; and example6 at full width held to
-the JAX package's golden image of it.
+the JAX package's golden images of it, its camera path and its ReSTIR
+render.
 
     python3 chip_smoke.py
 
@@ -26,7 +27,8 @@ million random directions and coordinates (B3 by int32 bits), 8 a
 small-render check of the card path against the CPU
 path; 9 the moving path (24 moving frames at 640x360 active, then 6 still
 frames, counters set to 0 just before and read just after, B4's routes
-counted over every call), 10 B4 against its twin on the last moving frame's
+counted over every call, frames 24 and 30 kept for phase 30), 10 B4
+against its twin on the last moving frame's
 own two calls, with both tap filters, and on the diffuse call with half the
 frame's reprojections scattered (a sudden turn, which overflows blocks'
 shared-memory boxes), every output bit-equal, 11 one moving frame's
@@ -82,7 +84,15 @@ ms and peak memory beside one device's; 29 example6 at its default config
 (1280x720) with 16 samples in one launch through ``Scene.finish``, held to
 the JAX package's CPU render of the same
 (``tests/golden/torch_fullres/``) at RMSE 0.015, the examples' golden
-bar; 16
+bar; 30 phase 9's frames 24 (the last moving one) and 30 (the last still
+one) held to the JAX package's CPU render of the same camera path from the
+same seed (``example6_path_f24.png``, ``example6_path_f30.png``) at RMSE
+0.015, with phase 9's launches (B1, B2, B3 and B4's ``temporal_taps``);
+31 example6 with ReSTIR-PT at the JAX defaults, 4 spp through
+``Scene.finish``, held to the JAX package's CPU render of the same
+(``example6_restir_1280x720_4spp.png``) at RMSE 0.015, B1's shadow
+dispatch among its launches; each of 29-31 with the share of pixels within
+2/255 and the 16 worst; 16
 example7's sky computed on the card at the default knobs into an
 empty temporary cache, then found there, and the same sky at test knobs on
 the card against the CPU; 17 every example through
@@ -134,6 +144,13 @@ FULLRES_GOLDEN = os.path.join("tests", "golden", "torch_fullres",
                               "example6_1280x720_16spp.png")
 FULLRES_SPL = 16
 FULLRES_BAR = 0.015
+# Phases 30-31: the JAX package's camera path (frames 24 and 30 of phase 9's
+# path) and ReSTIR render at 1280x720, both on the port's route
+PATH_GOLDENS = {n: os.path.join("tests", "golden", "torch_fullres",
+                                f"example6_path_f{n}.png") for n in (24, 30)}
+RESTIR_GOLDEN_SPP = 4
+RESTIR_GOLDEN = os.path.join("tests", "golden", "torch_fullres",
+                             "example6_restir_1280x720_4spp.png")
 RESTIR_SPP = 16  # one sample a launch on the ReSTIR path; the second half
 # of them gives its steady rate
 ROUTE_SPP = 32  # a timed turn of phase 19: two 16-sample launches
@@ -1907,42 +1924,27 @@ def phase_multichip_report(card, smi):
     return rep
 
 
-def phase_fullres_golden(smi):
-    """Phase 29: example6, unedited, at its default RenderConfig (1280x720)
-    with ``samples_per_launch=FULLRES_SPL``: one launch from the Scene's
-    default seed through ``Scene.finish`` on the card, the sky loaded from
-    ``data/skycache/`` (an empty ``sky_cache_dir`` must stay empty), held
-    to the JAX package's render of the same on the CPU
-    (``FULLRES_GOLDEN``, made by ``tests/test_torch_golden.py --regen``) at
-    RMSE ``FULLRES_BAR``, the bar of tests/test_examples_golden.py. Also
-    reported: the share of pixels whose channels all lie within 2/255, the
-    RMSE of the port's image rounded to 8 bits as the golden was, and the
-    pixels that differ most."""
-    import torch
+def held_to_golden(tag, img, golden_rel, launches, need, smi, **extra):
+    """``img`` held to the JAX package's golden ``golden_rel`` (made on the
+    CPU by ``tests/test_torch_golden.py --regen``): the RMSE, the RMSE of
+    the port's image rounded to 8 bits as the golden was, the share of
+    pixels whose channels all lie within 2/255, the pixels beyond it and
+    the 16 that differ most, and the launches. Fails when the image is not
+    finite or has the wrong shape, or when a kernel in ``need`` was not
+    launched; the caller holds the RMSE to ``FULLRES_BAR``. The port's
+    image goes to ``chiprun_out/golden_<tag>.png``."""
+    from voxelrt_torch.utils.image import read_png, to_uint8_rows, write_png
 
-    from voxelrt_torch.ops import _cuda
-    from voxelrt_torch.utils.image import read_png, to_uint8_rows
-
-    golden = read_png(os.path.join(HERE, FULLRES_GOLDEN))
-    with tempfile.TemporaryDirectory() as cache:
-        scene = build_example("example6", None, sky_cache_dir=cache,
-                              samples_per_launch=FULLRES_SPL)
-        _cuda.reset_launch_counts()
-        t0 = time.perf_counter()
-        img = scene.finish(spp=FULLRES_SPL, save=False)
-        torch.cuda.synchronize()
-        finish_s = time.perf_counter() - t0
-        launches = {k: v for k, v in _cuda.LAUNCHES.items() if v}
-        if os.listdir(cache):
-            fail("phase 29: the sky was recomputed, not loaded from "
-                 "data/skycache/")
+    golden = read_png(os.path.join(HERE, golden_rel))
     if img.shape != golden.shape or not np.isfinite(img).all():
-        fail("phase 29: the image is not finite or has the wrong shape")
+        fail(f"{tag}: the image is not finite or has the wrong shape")
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    write_png(os.path.join(HERE, "chiprun_out", f"golden_{tag}.png"), img)
     diff = np.abs(img - golden).max(-1)
     rounded = to_uint8_rows(img)[::-1].transpose(1, 0, 2) / np.float32(255)
     worst = np.argsort(diff, axis=None)[::-1][:16]
     out = dict(
-        res=list(img.shape[:2]), spp=FULLRES_SPL, finish_s=finish_s,
+        golden=golden_rel, res=list(img.shape[:2]), **extra,
         rmse=float(np.sqrt(np.mean((img - golden) ** 2))),
         rmse_8bit=float(np.sqrt(np.mean((rounded - golden) ** 2))),
         within_2_255=float((diff <= 2 / 255).mean()),
@@ -1953,14 +1955,95 @@ def phase_fullres_golden(smi):
             np.where((diff <= 2 / 255)[..., None], rounded - golden, 0.0)
             ** 2))),
         max_abs=float(diff.max()), bar=FULLRES_BAR, launches=launches,
-        worst_pixels=[dict(u=int(u), v=int(v), port=img[u, v].tolist(),
+        worst_pixels=[dict(u=int(u), v=int(v), diff=float(diff[u, v]),
+                           port=img[u, v].tolist(),
                            golden=golden[u, v].tolist())
                       for u, v in zip(*np.unravel_index(worst, diff.shape))],
         device=smi)
-    for k in ("traverse", "point_fetch", "bilinear_fetch_dirs"):
+    for k in need:
         if not launches.get(k):
-            fail(f"phase 29: kernel {k} was not launched")
+            fail(f"{tag}: kernel {k} was not launched")
     return out
+
+
+def report_golden(phase, what, out):
+    """Prints phase ``phase``'s row against its golden; fails above the
+    bar."""
+    worst = out["worst_pixels"]
+    print(f"full-width golden ({phase}): {what} at {out['res'][0]}x"
+          f"{out['res'][1]} against the JAX package's CPU render: RMSE "
+          f"{out['rmse']:.6f} (bar {FULLRES_BAR}; the port's image rounded "
+          f"to 8 bits {out['rmse_8bit']:.6f}), {out['within_2_255']:.6f} of "
+          f"pixels within 2/255 ({out['beyond_2_255_pixels']} beyond), "
+          f"largest difference {out['max_abs']:.4f}, launches "
+          f"{json.dumps(out['launches'])}, on {out['device']}; the worst "
+          f"pixels (u, v, largest channel difference): "
+          f"{[(p['u'], p['v'], round(p['diff'], 4)) for p in worst]}",
+          flush=True)
+    if not out["rmse"] <= FULLRES_BAR:
+        fail(f"phase {phase}: RMSE {out['rmse']} against the JAX package's "
+             f"golden is above {FULLRES_BAR}")
+
+
+def finish_from_shipped_sky(tag, spp, **config_over):
+    """example6 through ``Scene.finish(spp)`` on the card at its default
+    config with ``config_over``, from the Scene's default seed, the sky
+    loaded from ``data/skycache/`` (an empty ``sky_cache_dir`` must stay
+    empty); returns (image, Scene.finish seconds, launches)."""
+    import torch
+
+    from voxelrt_torch.ops import _cuda
+
+    with tempfile.TemporaryDirectory() as cache:
+        scene = build_example("example6", None, sky_cache_dir=cache,
+                              **config_over)
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        img = scene.finish(spp=spp, save=False)
+        torch.cuda.synchronize()
+        finish_s = time.perf_counter() - t0
+        launches = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+        if os.listdir(cache):
+            fail(f"{tag}: the sky was recomputed, not loaded from "
+                 "data/skycache/")
+    return img, finish_s, launches
+
+
+def phase_fullres_golden(smi):
+    """Phase 29: example6, unedited, at its default RenderConfig (1280x720)
+    with ``samples_per_launch=FULLRES_SPL``: one launch through
+    ``Scene.finish`` on the card, held to ``FULLRES_GOLDEN`` at RMSE
+    ``FULLRES_BAR``, the bar of tests/test_examples_golden.py."""
+    img, finish_s, launches = finish_from_shipped_sky(
+        "phase 29", FULLRES_SPL, samples_per_launch=FULLRES_SPL)
+    return held_to_golden("29", img, FULLRES_GOLDEN, launches,
+                          ("traverse", "point_fetch", "bilinear_fetch_dirs"),
+                          smi, spp=FULLRES_SPL, finish_s=finish_s)
+
+
+def phase_path_golden(frames, launches, smi):
+    """Phase 30: phase 9's camera path (example6 at its default config, the
+    Scene's default seed, ``Scene.run_frames`` over ``N_MOVING`` moving
+    and ``N_STILL`` still frames, one sample a frame): its frames kept by
+    number (counted from 1), each held to ``PATH_GOLDENS``' JAX render of
+    the same at RMSE ``FULLRES_BAR``, with phase 9's launches."""
+    return {n: held_to_golden(
+        f"30_f{n}", frames[n], PATH_GOLDENS[n], launches,
+        ("traverse", "point_fetch", "bilinear_fetch_dirs", "temporal_taps"),
+        smi, frame=n, moving=n <= N_MOVING) for n in sorted(PATH_GOLDENS)}
+
+
+def phase_restir_golden(smi):
+    """Phase 31: example6 with ReSTIR-PT at the JAX defaults (32 taps of
+    radius 24, one sample a launch), ``RESTIR_GOLDEN_SPP`` spp through
+    ``Scene.finish`` on the card, held to ``RESTIR_GOLDEN`` at RMSE
+    ``FULLRES_BAR``."""
+    img, finish_s, launches = finish_from_shipped_sky(
+        "phase 31", RESTIR_GOLDEN_SPP, use_restir_pt=True)
+    return held_to_golden("31", img, RESTIR_GOLDEN, launches,
+                          ("traverse", "traverse_shadow", "point_fetch",
+                           "bilinear_fetch_dirs"),
+                          smi, spp=RESTIR_GOLDEN_SPP, finish_s=finish_s)
 
 
 def main():
@@ -2158,6 +2241,13 @@ def main():
     b4_routes = torch.zeros(4, dtype=torch.int32, device=dev)
     rec_b4 = Recorder(temporal, "temporal_taps", keep=2,
                       inject=dict(counts=b4_routes))
+    # the frames phase 30 holds to the JAX package's goldens (counted from 1)
+    path_frames = {}
+
+    def keep_frame(i, frame):
+        if i + 1 in PATH_GOLDENS:
+            path_frames[i + 1] = np.array(frame)
+
     with open(os.devnull, "w") as null:
         mstats = FrameStats(out=null)
         _cuda.reset_launch_counts()
@@ -2165,7 +2255,8 @@ def main():
         t0 = time.perf_counter()
         mimg = mscene.run_frames(
             [dict(MOVE) for _ in range(N_MOVING)]
-            + [dict(HOLD) for _ in range(N_STILL)], stats=mstats)
+            + [dict(HOLD) for _ in range(N_STILL)], stats=mstats,
+            on_frame=keep_frame)
         torch.cuda.synchronize()
         path_s = time.perf_counter() - t0
         mlaunches = dict(_cuda.LAUNCHES)
@@ -2349,18 +2440,23 @@ def main():
 
     # -- 29. example6 at full width against the JAX package's golden --------
     fullres = counted("29", phase_fullres_golden, smi)
-    print(f"full-width golden: example6 {fullres['res'][0]}x"
-          f"{fullres['res'][1]}, {fullres['spp']} spp in one launch, "
-          f"against the JAX package's CPU render: RMSE {fullres['rmse']:.6f} "
-          f"(bar {FULLRES_BAR}; the port's image rounded to 8 bits "
-          f"{fullres['rmse_8bit']:.6f}), {fullres['within_2_255']:.6f} of "
-          f"pixels within 2/255, largest difference {fullres['max_abs']:.4f}"
-          f", Scene.finish {fullres['finish_s']:.2f} s on {smi}", flush=True)
-    if not fullres["rmse"] <= FULLRES_BAR:
-        fail(f"phase 29: RMSE {fullres['rmse']} against the JAX package's "
-             f"golden is above {FULLRES_BAR}")
-    print(f"phases 22-29, seconds each: "
-          f"{json.dumps({k: phase_s[k] for k in map(str, range(22, 30))})}"
+    report_golden("29", f"example6, {FULLRES_SPL} spp in one launch, "
+                  f"Scene.finish {fullres['finish_s']:.2f} s", fullres)
+
+    # -- 30-31. the camera path and ReSTIR against the JAX package's goldens
+    t0 = time.perf_counter()
+    path_golden = phase_path_golden(
+        path_frames, {k: v for k, v in mlaunches.items() if v}, smi)
+    phase_s["30"] = time.perf_counter() - t0
+    for n, out in path_golden.items():
+        report_golden("30", f"example6's camera path, frame {n} of phase 9 "
+                      f"({'moving' if out['moving'] else 'still'})", out)
+    restir_golden = counted("31", phase_restir_golden, smi)
+    report_golden("31", f"example6 with ReSTIR-PT, {RESTIR_GOLDEN_SPP} spp, "
+                  f"Scene.finish {restir_golden['finish_s']:.2f} s",
+                  restir_golden)
+    print(f"phases 22-31, seconds each: "
+          f"{json.dumps({k: phase_s[k] for k in map(str, range(22, 32))})}"
           f", launches: {json.dumps(phase_launches)}", flush=True)
 
     # -- 16. a full-size sky on the card; 17. every example ---------------------
@@ -2598,7 +2694,8 @@ def main():
                        multidevice=multidevice,
                        new_phase_launches=phase_launches, bench=bench,
                        trace_bench=trace_bench, multichip_report=multichip,
-                       fullres_golden=fullres),
+                       fullres_golden=fullres, path_golden=path_golden,
+                       restir_golden=restir_golden),
                   fh, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,5 +1,6 @@
 """PyTorch port: the golden images of tests/test_golden.py, rendered by the
-port, and the full-width golden that ``chip_smoke.py`` holds the card to.
+port, and the full-width goldens that ``chip_smoke.py`` holds the card to,
+with the JAX package's functions that make them.
 
 * ``main`` and ``lit_blocks`` are built through the port's ``Scene(...,
   device="cpu")`` with the calls and seed (7) of tests/test_golden.py,
@@ -22,9 +23,35 @@ port, and the full-width golden that ``chip_smoke.py`` holds the card to.
   here. Remake it (about 4 minutes and 12 GB of host
   memory) with:
 
-      python tests/test_torch_golden.py --regen
+      python tests/test_torch_golden.py --regen still
+
+* ``example6_path_f24.png`` and ``example6_path_f30.png`` are frames 24 (the
+  last moving one: 640×360 active, B4's Catmull-Rom taps, upsampled) and
+  30 (the last still one after the reset) of example6's camera path, the
+  path of ``chip_smoke.py`` phase 9 (24 frames of orbit (0.01, 0.002) +
+  'w' at dt 0.02, then 6 still ones, one sample a frame), rendered through
+  the JAX package's ``Scene.run_frames`` at the default ``RenderConfig``
+  (1280×720) from the default seed. ``example6_restir_1280x720_4spp.png``
+  is example6 with ReSTIR-PT at the JAX defaults (32 taps of radius 24,
+  one sample a launch), 4 spp from the default seed through
+  ``Scene.finish``. Both take the port's route, the JAX package's
+  ``use_pallas_dda=True`` with its Pallas kernels in interpret mode
+  (``PORT_ROUTE``): bf16 sky maps, B4 on bf16 motion sources, the Pallas
+  traversal. Phases 30 and 31 hold the card to them at RMSE 0.015;
+  tests/test_torch_golden_paths.py reads them and runs the functions below
+  at 128×72 against the port's CPU path. Remake them (793 and 661 s and
+  6.3 and 5.8 GiB of host memory on an 8-core host, the two side by side)
+  with:
+
+      python tests/test_torch_golden.py --regen path
+      python tests/test_torch_golden.py --regen restir
+
+  ``--regen path --frames 1,2,24 --out DIR`` writes other frames of the
+  path as ``DIR/fNN.png`` instead (``tools/path_frames_torch.py compare``
+  reads them).
 """
 
+import contextlib
 import os
 import sys
 import tempfile
@@ -42,6 +69,19 @@ FULLRES = os.path.join(GOLDEN_DIR, "torch_fullres",
                        "example6_1280x720_16spp.png")
 FULLRES_RES = (1280, 720)
 FULLRES_SPL = 16
+# chip_smoke.py's camera path: 24 frames of orbit and dolly, then 6 still
+MOVE = {"orbit": (0.01, 0.002), "move_keys": ["w"], "dt": 0.02}
+HOLD = {"dt": 0.02}
+PATH_FRAMES = [MOVE] * 24 + [HOLD] * 6
+PATH_KEEP = (24, 30)  # the last moving frame and the last still one
+PATH_GOLDENS = {n: os.path.join(GOLDEN_DIR, "torch_fullres",
+                                f"example6_path_f{n}.png") for n in PATH_KEEP}
+RESTIR_SPP = 4
+RESTIR_GOLDEN = os.path.join(GOLDEN_DIR, "torch_fullres",
+                             "example6_restir_1280x720_4spp.png")
+# The JAX package's Pallas route with its kernels in interpret mode: the
+# route the port always takes (bf16 sky maps, B4's taps on bf16 sources).
+PORT_ROUTE = dict(use_pallas_dda=True, pallas_interpret=True)
 RES = (96, 54)
 SPP = 24
 
@@ -116,12 +156,14 @@ def test_fullres_golden_reads_as_an_image():
     assert 0.05 < img.mean() < 0.95 and img.std() > 0.05
 
 
-def render_example6_jax(res):
-    """example6 through the JAX package's ``Scene`` on the CPU at ``res``,
-    16 samples in one launch, as the module's docstring says. The render
-    runs in an empty working directory, so the sky can come only from
-    ``data/skycache/``: a recomputed sky would be written to that
-    directory's ``.skycache/``, and that fails."""
+@contextlib.contextmanager
+def example6_jax(**config_over):
+    """The JAX package's example6 ``Scene`` on the CPU, unedited, with
+    ``config_over`` replacing fields of its ``RenderConfig``. The caller
+    renders inside the ``with`` block, which runs in an empty working
+    directory, so the sky can come only from ``data/skycache/``: a
+    recomputed sky would be written to that directory's ``.skycache/``,
+    and that fails."""
     import dataclasses
 
     import jax
@@ -135,20 +177,55 @@ def render_example6_jax(res):
 
     example6.initialize_voxels()
     scene = example6.scene
-    scene.config = dataclasses.replace(scene.config, image_res=tuple(res),
-                                       samples_per_launch=FULLRES_SPL)
+    scene.config = dataclasses.replace(scene.config, **config_over)
     cwd = os.getcwd()
-    with tempfile.TemporaryDirectory() as tmp:
-        os.chdir(tmp)
-        try:
-            img = scene.finish(spp=FULLRES_SPL, save=False)
-        finally:
-            os.chdir(cwd)
-        if os.path.exists(os.path.join(tmp, ".skycache")):
-            raise RuntimeError("the sky was recomputed, not loaded from "
-                               "data/skycache/")
-    sys.modules.pop("example6", None)
-    return np.asarray(img)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            os.chdir(tmp)
+            try:
+                yield scene
+            finally:
+                os.chdir(cwd)
+            if os.path.exists(os.path.join(tmp, ".skycache")):
+                raise RuntimeError("the sky was recomputed, not loaded from "
+                                   "data/skycache/")
+    finally:
+        sys.modules.pop("example6", None)
+
+
+def render_example6_jax(res):
+    """example6 through the JAX package's ``Scene`` on the CPU at ``res``,
+    16 samples in one launch, as the module's docstring says."""
+    with example6_jax(image_res=tuple(res),
+                      samples_per_launch=FULLRES_SPL) as scene:
+        return np.asarray(scene.finish(spp=FULLRES_SPL, save=False))
+
+
+def render_example6_path_jax(res, frames=PATH_FRAMES, keep=PATH_KEEP):
+    """example6's camera path through the JAX package's
+    ``Scene.run_frames`` on the CPU at ``res`` and its default config
+    otherwise, on the port's route (``PORT_ROUTE``), one sample a frame;
+    returns {frame number counted from 1: image} for the frames in
+    ``keep``."""
+    imgs = {}
+
+    def on_frame(i, img):
+        if i + 1 in keep:
+            imgs[i + 1] = np.asarray(img)
+
+    with example6_jax(image_res=tuple(res), **PORT_ROUTE) as scene:
+        scene.run_frames([dict(f) for f in frames], on_frame=on_frame)
+    return imgs
+
+
+def render_example6_restir_jax(res, spp=RESTIR_SPP):
+    """example6 with ReSTIR-PT at the JAX defaults (32 taps of radius 24,
+    one sample a launch) through the JAX package's ``Scene.finish`` on the
+    CPU at ``res``, ``spp`` samples from the default seed, on the port's
+    route (``PORT_ROUTE``)."""
+    with example6_jax(image_res=tuple(res), use_restir_pt=True,
+                      **PORT_ROUTE) as scene:
+        return np.asarray(scene.finish(spp=spp, save=False))
 
 
 def test_example6_gap_is_the_bf16_sky_maps(monkeypatch):
@@ -201,16 +278,56 @@ def test_example6_gap_is_the_bf16_sky_maps(monkeypatch):
     assert rmse["f32"] >= 5 * rmse["bf16"]
 
 
+def regen(name, frames=None, out_dir=None):
+    """Render the golden ``name`` ('still', 'path' or 'restir') with the JAX
+    package on the CPU and write it; print its seconds and the process's
+    peak host memory. For 'path', ``frames`` (counted from 1) and
+    ``out_dir`` keep other frames of the path, written as
+    ``out_dir/fNN.png`` in place of the goldens."""
+    import resource
+    import time
+
+    from voxelrt.utils.image import write_png
+
+    t0 = time.perf_counter()
+    if name == "still":
+        out = {FULLRES: render_example6_jax(FULLRES_RES)}
+    elif name == "path":
+        imgs = render_example6_path_jax(FULLRES_RES,
+                                        keep=frames or PATH_KEEP)
+        out = {(os.path.join(out_dir, f"f{n:02d}.png") if out_dir
+                else PATH_GOLDENS[n]): img for n, img in imgs.items()}
+    elif name == "restir":
+        out = {RESTIR_GOLDEN: render_example6_restir_jax(FULLRES_RES)}
+    else:
+        raise SystemExit(f"unknown golden {name!r}: still, path or restir")
+    seconds = time.perf_counter() - t0
+    peak_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    for path, img in out.items():
+        write_png(path, img)
+        print(f"wrote {path}: {os.path.getsize(path)} bytes, mean "
+              f"{img.mean():.4f}")
+    print(f"{name}: render {seconds:.1f} s, peak host memory "
+          f"{peak_gb:.2f} GiB")
+
+
 if __name__ == "__main__":
-    if "--regen" in sys.argv:
-        import time
+    import argparse
 
-        sys.path.insert(0, ROOT)
-        from voxelrt.utils.image import write_png
-
-        t0 = time.perf_counter()
-        img = render_example6_jax(FULLRES_RES)
-        seconds = time.perf_counter() - t0
-        write_png(FULLRES, img)
-        print(f"wrote {FULLRES}: {os.path.getsize(FULLRES)} bytes, render "
-              f"{seconds:.1f} s, mean {img.mean():.4f}")
+    ap = argparse.ArgumentParser(
+        description="Remake a full-width golden with the JAX package.")
+    ap.add_argument("--regen", nargs="?", const="still", required=True,
+                    choices=("still", "path", "restir"))
+    ap.add_argument("--frames", default=None,
+                    help="'path' only: frames to keep, e.g. 1,2,24")
+    ap.add_argument("--out", default=None,
+                    help="'path' only: write the kept frames here as fNN.png")
+    args = ap.parse_args()
+    if (args.frames is None) != (args.out is None):
+        ap.error("--frames and --out go together")
+    sys.path.insert(0, ROOT)
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+    regen(args.regen,
+          frames=tuple(int(n) for n in args.frames.split(","))
+          if args.frames else None, out_dir=args.out)
