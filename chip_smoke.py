@@ -10,7 +10,7 @@ portable traversal and multi-device rendering; and the benchmark harness
 ``bench_torch.py``, B1 on ``tools/trace_bench_torch.py``'s ray sets and the
 still frame partitioned at dp=8 and dp=32; and example6 at full width held to
 the JAX package's golden images of it, its camera path and its ReSTIR
-render.
+render, and its sky computed on the card held to the JAX package's.
 
     python3 chip_smoke.py
 
@@ -47,7 +47,7 @@ CPU; 15 P
 against its plain version for every variant, then ``tools/cuda_probe.py``'s
 table; then, before phase 16 (after the sky precompute torch.profiler sees
 no kernel in this process), 18 example6 with ReSTIR-PT at the JAX defaults
-(32 taps, radius 24, one sample a launch): 16 spp counted, the last 8 for
+(32 taps, radius 24, one sample a launch): 8 spp counted, the last 4 for
 the steady rate, a profiled launch and GRIS pass, and B1's GRIS revalidation
 dispatch, B2's inline escape fetch at depth 1 and B3's call in the GRIS pass
 on packed directions against their twins by int32 bits; 19 the main path with
@@ -92,7 +92,12 @@ same seed (``example6_path_f24.png``, ``example6_path_f30.png``) at RMSE
 ``Scene.finish``, held to the JAX package's CPU render of the same
 (``example6_restir_1280x720_4spp.png``) at RMSE 0.015, B1's shadow
 dispatch among its launches; each of 29-31 with the share of pixels within
-2/255 and the 16 worst; 16
+2/255 and the 16 worst; 32 example6's sky at ``skybox_res=128`` and every
+other knob at its default, computed on the card by ``Scene.finish`` from
+an empty cache, held to the JAX package's CPU sky of the same
+(``example6_sky_128.npz``) at tests/test_torch_sky.py's bars with the
+texels that miss split by layer, and its 16-sample image at 1280x720 held
+to the same render lit by the JAX package's sky at RMSE 0.015; 16
 example7's sky computed on the card at the default knobs into an
 empty temporary cache, then found there, and the same sky at test knobs on
 the card against the CPU; 17 every example through
@@ -138,7 +143,8 @@ HOLD = {"dt": 0.02}
 N_MOVING, N_STILL = 24, 6
 B1_TWIN_SAMPLES = 4  # of a dispatch's 16 samples go through B1's slow twin
 EXAMPLE_SPP = 16
-EXAMPLE10_SKY_RES = 256  # its sky is computed at this size here, not 1024
+EXAMPLE10_SKY_RES = 128  # its sky is computed at this size here, not 1024
+# (one 16,384-texel chunk; 256 before phase 32 was added)
 # Phase 29: the JAX package's example6 at 1280x720, one launch of 16 samples
 FULLRES_GOLDEN = os.path.join("tests", "golden", "torch_fullres",
                               "example6_1280x720_16spp.png")
@@ -151,8 +157,18 @@ PATH_GOLDENS = {n: os.path.join("tests", "golden", "torch_fullres",
 RESTIR_GOLDEN_SPP = 4
 RESTIR_GOLDEN = os.path.join("tests", "golden", "torch_fullres",
                              "example6_restir_1280x720_4spp.png")
-RESTIR_SPP = 16  # one sample a launch on the ReSTIR path; the second half
-# of them gives its steady rate
+# Phase 32: the JAX package's example6 sky at the default knobs, only
+# skybox_res cut (one 16,384-texel chunk, the full sky's chunk size), and
+# tests/test_torch_sky.py's bars for prepare_sky against the JAX package
+SKY_GOLDEN_RES = 128
+SKY_GOLDEN = os.path.join("tests", "golden", "torch_fullres",
+                          f"example6_sky_{SKY_GOLDEN_RES}.npz")
+SKY_RTOL, SKY_ATOL = 2e-4, 1e-7
+SKY_SHARE_BAR = 0.95
+SKY_REL_RMSE_BARS = dict(scattering=6e-2, transmittance=1.5e-2)
+SKY_AMBIENT_ATOL, SKY_LUT_ATOL = 1e-6, 2e-6
+RESTIR_SPP = 8  # one sample a launch on the ReSTIR path; the second half
+# of them gives its steady rate (16 before phase 32 was added)
 ROUTE_SPP = 32  # a timed turn of phase 19: two 16-sample launches
 ROUTE_TWIN_RAYS = 230_400  # of a phase-19 dispatch go through B1's twin
 TINY_SKY = dict(skybox_res=128, sky_steps=8, sky_sun_samples=2,
@@ -1924,18 +1940,25 @@ def phase_multichip_report(card, smi):
     return rep
 
 
-def held_to_golden(tag, img, golden_rel, launches, need, smi, **extra):
+def held_to_golden(tag, img, golden_rel, launches, need, smi, golden=None,
+                   **extra):
     """``img`` held to the JAX package's golden ``golden_rel`` (made on the
-    CPU by ``tests/test_torch_golden.py --regen``): the RMSE, the RMSE of
-    the port's image rounded to 8 bits as the golden was, the share of
-    pixels whose channels all lie within 2/255, the pixels beyond it and
-    the 16 that differ most, and the launches. Fails when the image is not
-    finite or has the wrong shape, or when a kernel in ``need`` was not
-    launched; the caller holds the RMSE to ``FULLRES_BAR``. The port's
+    CPU by ``tests/test_torch_golden.py --regen``), or to the image
+    ``golden`` in memory, which ``golden_rel`` then names: the RMSE, the
+    RMSE of the port's image rounded to 8 bits as a PNG golden was (an
+    image in memory is rounded alike for it), the
+    share of pixels whose channels all lie within 2/255, the pixels beyond
+    it and the 16 that differ most, and the launches. Fails when the image
+    is not finite or has the wrong shape, or when a kernel in ``need`` was
+    not launched; the caller holds the RMSE to ``FULLRES_BAR``. The port's
     image goes to ``chiprun_out/golden_<tag>.png``."""
     from voxelrt_torch.utils.image import read_png, to_uint8_rows, write_png
 
-    golden = read_png(os.path.join(HERE, golden_rel))
+    if golden is None:
+        golden = golden_8bit = read_png(os.path.join(HERE, golden_rel))
+    else:
+        golden_8bit = to_uint8_rows(golden)[::-1].transpose(1, 0, 2) \
+            / np.float32(255)
     if img.shape != golden.shape or not np.isfinite(img).all():
         fail(f"{tag}: the image is not finite or has the wrong shape")
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
@@ -1946,14 +1969,14 @@ def held_to_golden(tag, img, golden_rel, launches, need, smi, **extra):
     out = dict(
         golden=golden_rel, res=list(img.shape[:2]), **extra,
         rmse=float(np.sqrt(np.mean((img - golden) ** 2))),
-        rmse_8bit=float(np.sqrt(np.mean((rounded - golden) ** 2))),
+        rmse_8bit=float(np.sqrt(np.mean((rounded - golden_8bit) ** 2))),
         within_2_255=float((diff <= 2 / 255).mean()),
         beyond_2_255_pixels=int((diff > 2 / 255).sum()),
         # the 8-bit RMSE with the pixels beyond 2/255 left out (their
         # differences set to 0), so that the two parts add in quadrature
         rmse_8bit_within=float(np.sqrt(np.mean(
-            np.where((diff <= 2 / 255)[..., None], rounded - golden, 0.0)
-            ** 2))),
+            np.where((diff <= 2 / 255)[..., None], rounded - golden_8bit,
+                     0.0) ** 2))),
         max_abs=float(diff.max()), bar=FULLRES_BAR, launches=launches,
         worst_pixels=[dict(u=int(u), v=int(v), diff=float(diff[u, v]),
                            port=img[u, v].tolist(),
@@ -1966,12 +1989,12 @@ def held_to_golden(tag, img, golden_rel, launches, need, smi, **extra):
     return out
 
 
-def report_golden(phase, what, out):
-    """Prints phase ``phase``'s row against its golden; fails above the
-    bar."""
+def report_golden(phase, what, out, against="the JAX package's CPU render"):
+    """Prints phase ``phase``'s row against its golden, ``against``; fails
+    above the bar."""
     worst = out["worst_pixels"]
     print(f"full-width golden ({phase}): {what} at {out['res'][0]}x"
-          f"{out['res'][1]} against the JAX package's CPU render: RMSE "
+          f"{out['res'][1]} against {against}: RMSE "
           f"{out['rmse']:.6f} (bar {FULLRES_BAR}; the port's image rounded "
           f"to 8 bits {out['rmse_8bit']:.6f}), {out['within_2_255']:.6f} of "
           f"pixels within 2/255 ({out['beyond_2_255_pixels']} beyond), "
@@ -1981,8 +2004,8 @@ def report_golden(phase, what, out):
           f"{[(p['u'], p['v'], round(p['diff'], 4)) for p in worst]}",
           flush=True)
     if not out["rmse"] <= FULLRES_BAR:
-        fail(f"phase {phase}: RMSE {out['rmse']} against the JAX package's "
-             f"golden is above {FULLRES_BAR}")
+        fail(f"phase {phase}: RMSE {out['rmse']} against {against} is above "
+             f"{FULLRES_BAR}")
 
 
 def finish_from_shipped_sky(tag, spp, **config_over):
@@ -2044,6 +2067,197 @@ def phase_restir_golden(smi):
                           ("traverse", "traverse_shadow", "point_fetch",
                            "bilinear_fetch_dirs"),
                           smi, spp=RESTIR_GOLDEN_SPP, finish_s=finish_s)
+
+
+def sky_layers(cfg, args, golden_trans, device):
+    """Masks of a sky map's texels: above the horizon (the texel's
+    direction points up) and in cloud (the golden's transmittance below
+    0.99 of the clear sky's along the same direction, that is a cloud
+    transmittance below 0.99; the clear sky's own transmittance is 0.89 at
+    most, so the golden's alone cannot tell cloud from air)."""
+    from voxelrt_torch.sky import atmos
+
+    res = cfg.skybox_res
+    dirs = atmos._texel_dirs(cfg, 0, res * res, device)
+    cam = atmos.splat(atmos._f32(atmos.CAM_POS, device))
+    # the transmittance depends on the march's steps, not on the sun or
+    # multiple-scattering samples
+    lean = dataclasses.replace(cfg, sky_sun_samples=1, sky_ms_samples=1,
+                               sky_ms_steps=1)
+    _, clear = atmos.atmospheric_scattering(lean, cam, dirs, *args,
+                                            atmos.prng.key(0))
+    clear = np.stack([c.cpu().numpy() for c in clear], -1).reshape(
+        golden_trans.shape)
+    above = dirs.y.cpu().numpy().reshape(res, res) > 0.0
+    lit = clear[..., 0] > 0.0  # the red channel, the least dimmed
+    cloud = lit & (golden_trans[..., 0]
+                   < 0.99 * np.where(lit, clear[..., 0], 1.0))
+    return above, cloud
+
+
+def sky_agreement(cfg, args, sky, golden, device):
+    """The port's sky ``sky`` against the JAX package's ``golden`` (both
+    SkyData) at tests/test_torch_sky.py's bars: the share of texels whose
+    three channels of both maps lie within ``SKY_RTOL``/``SKY_ATOL``, the
+    maps' RMSE relative to the golden's mean, the cloud ambient and the
+    transmittance LUT; the texels that miss, split by layer."""
+    def close(a, b):
+        return np.isclose(a, b, rtol=SKY_RTOL, atol=SKY_ATOL).all(-1)
+
+    def rel_rmse(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return float(np.sqrt(np.mean((a - b) ** 2)) / np.abs(b).mean())
+
+    def within(a, b, atol):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return bool((np.abs(a - b) <= atol + SKY_RTOL * np.abs(b)).all())
+
+    ok = (close(sky.skybox_scattering, golden.skybox_scattering)
+          & close(sky.skybox_transmittance, golden.skybox_transmittance))
+    above, cloud = sky_layers(cfg, args, golden.skybox_transmittance, device)
+    layers = {}
+    for a_name, a in (("above", above), ("below", ~above)):
+        for c_name, c in (("cloud", cloud), ("clear", ~cloud)):
+            m = a & c
+            layers[f"{a_name}_{c_name}"] = dict(
+                texels=int(m.sum()), missed=int((m & ~ok).sum()))
+    return dict(
+        share=float(ok.mean()), missed=int((~ok).sum()),
+        rel_rmse_scattering=rel_rmse(sky.skybox_scattering,
+                                     golden.skybox_scattering),
+        rel_rmse_transmittance=rel_rmse(sky.skybox_transmittance,
+                                        golden.skybox_transmittance),
+        ambient_max_abs=float(np.abs(sky.cloud_ambient
+                                     - golden.cloud_ambient).max()),
+        ambient_ok=within(sky.cloud_ambient, golden.cloud_ambient,
+                          SKY_AMBIENT_ATOL),
+        lut_max_abs=float(np.abs(sky.trans_lut - golden.trans_lut).max()),
+        lut_ok=within(sky.trans_lut, golden.trans_lut, SKY_LUT_ATOL),
+        layers=layers)
+
+
+def phase_sky_golden(smi):
+    """Phase 32: example6 at ``skybox_res=SKY_GOLDEN_RES``, every other
+    knob at its default, from a fresh ``Scene`` with an empty sky cache:
+    ``Scene.finish`` computes the sky on the card in ``prepare_data`` and
+    renders one launch of ``FULLRES_SPL`` samples at 1280x720 with it. The
+    sky is held to the JAX package's (``SKY_GOLDEN``, made on the CPU by
+    ``tests/test_torch_golden.py --regen sky``) at tests/test_torch_sky.py's
+    bars, and the image to the same render from a fresh ``Scene`` that
+    loads the JAX package's sky, at RMSE ``FULLRES_BAR``. Each render's
+    launches are counted from 0."""
+    import torch
+
+    from voxelrt_torch.ops import _cuda
+    from voxelrt_torch.sky import atmos
+
+    need = ("traverse", "point_fetch", "bilinear_fetch_dirs")
+    t_phase = time.perf_counter()
+    with open(os.path.join(HERE, SKY_GOLDEN[:-len(".npz")] + ".json")) as fh:
+        record = json.load(fh)
+    imgs, launches, finish_s = {}, {}, {}
+    with tempfile.TemporaryDirectory() as gdir, \
+            tempfile.TemporaryDirectory() as cdir:
+        for tag, cache in (("golden", gdir), ("card", cdir)):
+            scene = build_example(
+                "example6", None, sky_cache_dir=cache,
+                skybox_res=SKY_GOLDEN_RES, samples_per_launch=FULLRES_SPL)
+            cfg = scene.renderer.cfg
+            args = sky_args(scene)
+            key = atmos._cache_key(cfg, *args)
+            if key != record["key"]:
+                fail(f"phase 32: the port keys example6's sky {key}, the "
+                     f"golden {record['key']}")
+            if tag == "golden":
+                shutil.copyfile(os.path.join(HERE, SKY_GOLDEN),
+                                os.path.join(gdir, f"sky_{key}.npz"))
+            elif atmos.load_sky(cfg, *args, "cpu", cdir) is not None:
+                fail("phase 32 needs a sky that no cache holds")
+            stats = {}
+            compute = atmos.prepare_sky
+
+            def timed_sky(*a, **kw):
+                t0 = time.perf_counter()
+                out = compute(*a, **kw, stats=stats)
+                torch.cuda.synchronize()
+                stats["total_s"] = time.perf_counter() - t0
+                return out
+
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _cuda.reset_launch_counts()
+            atmos.prepare_sky = timed_sky
+            try:
+                t0 = time.perf_counter()
+                imgs[tag] = scene.finish(spp=FULLRES_SPL, save=False)
+                torch.cuda.synchronize()
+                finish_s[tag] = time.perf_counter() - t0
+            finally:
+                atmos.prepare_sky = compute
+            launches[tag] = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+            if tag == "golden":
+                if not stats["cache_hit"] or len(os.listdir(gdir)) != 1:
+                    fail("phase 32: the JAX package's sky was not loaded")
+                golden = scene.renderer.scene_data.sky
+            else:
+                if stats["cache_hit"] or len(os.listdir(cdir)) != 1:
+                    fail("phase 32: the card did not compute the sky")
+                sky, sky_stats = scene.renderer.scene_data.sky, stats
+                peak_gb = torch.cuda.max_memory_allocated() / 1e9
+                agree = sky_agreement(cfg, args, sky, golden,
+                                      scene.renderer.device)
+            del scene
+    torch.cuda.empty_cache()
+    render = held_to_golden(
+        "32", imgs["card"], f"example6 lit by {SKY_GOLDEN}", launches["card"],
+        need, smi, golden=imgs["golden"], spp=FULLRES_SPL,
+        finish_s=finish_s["card"], golden_finish_s=finish_s["golden"],
+        golden_launches=launches["golden"])
+    for k in need:
+        if not launches["golden"].get(k):
+            fail(f"phase 32: kernel {k} was not launched in the render with "
+                 "the JAX package's sky")
+    return dict(skybox_res=SKY_GOLDEN_RES, golden=SKY_GOLDEN,
+                golden_seconds_on_cpu=record["seconds"], key=record["key"],
+                sky=agree, sky_s=sky_stats["total_s"],
+                sky_stage_s={k: sky_stats[k] for k in (
+                    "lut_s", "cloud_s", "sky_s", "chunks_per_batch")},
+                peak_gb=peak_gb, render=render,
+                phase_s=time.perf_counter() - t_phase, device=smi)
+
+
+def report_sky_golden(out):
+    """Prints phase 32's rows; fails on any miss of a bar."""
+    a = out["sky"]
+    print(f"sky golden (32): example6's sky at {out['skybox_res']}^2 and the "
+          f"default knobs, computed on the card in {out['sky_s']:.2f} s "
+          f"(stages {json.dumps(out['sky_stage_s'])}; the JAX package on "
+          f"the CPU {out['golden_seconds_on_cpu']:.1f} s), against the JAX "
+          f"package's: {a['share']:.6f} of texels within rtol {SKY_RTOL} / "
+          f"atol {SKY_ATOL} (bar {SKY_SHARE_BAR}; {a['missed']} miss), "
+          f"relative RMSE scattering {a['rel_rmse_scattering']:.3e} (bar "
+          f"{SKY_REL_RMSE_BARS['scattering']}), transmittance "
+          f"{a['rel_rmse_transmittance']:.3e} (bar "
+          f"{SKY_REL_RMSE_BARS['transmittance']}), cloud ambient "
+          f"{a['ambient_max_abs']:.3e} apart (atol {SKY_AMBIENT_ATOL}), "
+          f"LUT {a['lut_max_abs']:.3e} (atol {SKY_LUT_ATOL}); the texels "
+          f"that miss by layer {json.dumps(a['layers'])}; phase "
+          f"{out['phase_s']:.2f} s, peak {out['peak_gb']:.2f} GB, on "
+          f"{out['device']}", flush=True)
+    report_golden("32", "example6 lit by the card's sky, "
+                  f"{FULLRES_SPL} spp in one launch, Scene.finish with the "
+                  f"sky {out['render']['finish_s']:.2f} s", out["render"],
+                  against="the same lit by the JAX package's sky")
+    if a["share"] < SKY_SHARE_BAR:
+        fail(f"phase 32: {a['share']} of the sky's texels within tolerance, "
+             f"under {SKY_SHARE_BAR}")
+    for m, bar in SKY_REL_RMSE_BARS.items():
+        if not a[f"rel_rmse_{m}"] < bar:
+            fail(f"phase 32: the sky's {m} relative RMSE "
+                 f"{a[f'rel_rmse_{m}']} is not under {bar}")
+    if not (a["ambient_ok"] and a["lut_ok"]):
+        fail("phase 32: the cloud ambient or the transmittance LUT is off "
+             "the JAX package's")
 
 
 def main():
@@ -2455,8 +2669,13 @@ def main():
     report_golden("31", f"example6 with ReSTIR-PT, {RESTIR_GOLDEN_SPP} spp, "
                   f"Scene.finish {restir_golden['finish_s']:.2f} s",
                   restir_golden)
-    print(f"phases 22-31, seconds each: "
-          f"{json.dumps({k: phase_s[k] for k in map(str, range(22, 32))})}"
+
+    # -- 32. example6's sky computed on the card, against the JAX package's
+    sky_golden = timed("32", phase_sky_golden, smi)
+    phase_launches["32"] = sky_golden["render"]["launches"]
+    report_sky_golden(sky_golden)
+    print(f"phases 22-32, seconds each: "
+          f"{json.dumps({k: phase_s[k] for k in map(str, range(22, 33))})}"
           f", launches: {json.dumps(phase_launches)}", flush=True)
 
     # -- 16. a full-size sky on the card; 17. every example ---------------------
@@ -2665,7 +2884,7 @@ def main():
              variant_loop_ns_per_iter={
                  k: f["loop_ns_per_iter"] for k, f in probe["table"].items()}),
     ]
-    # each kernel's launches in phases 22-28, by its counter
+    # each kernel's launches in phases 22-32, by its counter
     counter = {"B1 traverse": "traverse", "B2 point_fetch_words": "point_fetch",
                "B3 bilinear_fetch_dirs": "bilinear_fetch_dirs",
                "B3 bilinear_fetch_dirs2": "bilinear_fetch_dirs2",
@@ -2695,7 +2914,7 @@ def main():
                        new_phase_launches=phase_launches, bench=bench,
                        trace_bench=trace_bench, multichip_report=multichip,
                        fullres_golden=fullres, path_golden=path_golden,
-                       restir_golden=restir_golden),
+                       restir_golden=restir_golden, sky_golden=sky_golden),
                   fh, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)

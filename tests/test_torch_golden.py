@@ -49,9 +49,26 @@ with the JAX package's functions that make them.
   ``--regen path --frames 1,2,24 --out DIR`` writes other frames of the
   path as ``DIR/fNN.png`` instead (``tools/path_frames_torch.py compare``
   reads them).
+* ``example6_sky_128.npz`` and ``example6_sky_16.npz`` are example6's sky
+  computed by the JAX package's ``prepare_sky`` on the CPU at the default
+  knobs of its ``RenderConfig`` (64 sky steps, 8 sun samples, 8×5
+  multi-scatter, 32 cloud steps × 8 sun samples × 8 shadow steps × 32
+  accumulation passes) with only ``skybox_res`` cut: the ``sky_<key>.npz``
+  the JAX package writes, kept as it wrote it. Each chunk of texels draws
+  from its own key, so every texel does the full default work; 128² is one
+  chunk of 16,384 texels, the full sky's chunk size. ``example6_sky_<res>.json``
+  beside each records the knobs, the light, the key and the seconds it
+  took. ``chip_smoke.py`` phase 32 holds the card's sky to the 128² file
+  and renders with both; tests/test_torch_sky_golden.py holds the port's
+  CPU sky to the 16² one. Remake both (XLA compiles the 32 unrolled
+  passes anew for each size: 1,096 s for 128² and 818 s for 16² on an
+  8-core x86 host, 8 GB of host memory; start it in the background) with:
+
+      python tests/test_torch_golden.py --regen sky
 """
 
 import contextlib
+import json
 import os
 import sys
 import tempfile
@@ -82,6 +99,12 @@ RESTIR_GOLDEN = os.path.join(GOLDEN_DIR, "torch_fullres",
 # The JAX package's Pallas route with its kernels in interpret mode: the
 # route the port always takes (bf16 sky maps, B4's taps on bf16 sources).
 PORT_ROUTE = dict(use_pallas_dda=True, pallas_interpret=True)
+SKY_RES = (128, 16)  # the card's golden, the CPU test's
+SKY_GOLDENS = {r: os.path.join(GOLDEN_DIR, "torch_fullres",
+                               f"example6_sky_{r}.npz") for r in SKY_RES}
+SKY_KNOBS = ("skybox_res", "sky_steps", "sky_sun_samples", "sky_ms_samples",
+             "sky_ms_steps", "cloud_steps", "cloud_sun_samples",
+             "cloud_shadow_steps", "cloud_accum_passes", "use_clouds")
 RES = (96, 54)
 SPP = 24
 
@@ -228,6 +251,66 @@ def render_example6_restir_jax(res, spp=RESTIR_SPP):
         return np.asarray(scene.finish(spp=spp, save=False))
 
 
+def sky_args(scene):
+    """The light that HeadlessRenderer.prepare_data gives prepare_sky (the
+    same attributes in both packages' ``Scene``)."""
+    return (np.asarray(scene._light_direction, np.float32),
+            np.asarray(scene._light_color, np.float32)
+            * scene.renderer.cfg.light_weight,
+            float(scene._light_cone_cos_theta_max))
+
+
+def sky_record(res):
+    """The record beside the sky golden of ``skybox_res`` ``res``."""
+    with open(SKY_GOLDENS[res][:-len(".npz")] + ".json") as fh:
+        return json.load(fh)
+
+
+def make_sky_golden_jax(res):
+    """example6's sky through the JAX package's unedited ``prepare_sky`` on
+    the CPU, at example6's ``RenderConfig`` with ``skybox_res`` = ``res``
+    and the scene's own light, into an empty cache directory; returns (the
+    bytes of the ``sky_<key>.npz`` it wrote, the record: knobs, light, key,
+    seconds). Nothing may be written to ``data/skycache/`` or the
+    repository's ``.skycache/``."""
+    import time
+
+    from voxelrt.sky import atmos as jatmos
+
+    watched = [os.path.join(ROOT, "data", "skycache"),
+               os.path.join(ROOT, ".skycache")]
+
+    def listing():
+        return {d: sorted(os.listdir(d)) if os.path.isdir(d) else None
+                for d in watched}
+
+    before = listing()
+    with example6_jax(skybox_res=res) as scene, \
+            tempfile.TemporaryDirectory() as cache:
+        cfg = scene.renderer.cfg
+        args = sky_args(scene)
+        if getattr(scene, "_cloud_texture", None) is not None:
+            raise RuntimeError("example6 has no cloud texture")
+        t0 = time.perf_counter()
+        jatmos.prepare_sky(cfg, *args, quiet=True, cache_dir=cache)
+        seconds = time.perf_counter() - t0
+        key = jatmos._cache_key(cfg, *args)
+        (name,) = os.listdir(cache)
+        if name != f"sky_{key}.npz":
+            raise RuntimeError(f"the JAX package wrote {name}, not "
+                               f"sky_{key}.npz")
+        with open(os.path.join(cache, name), "rb") as fh:
+            data = fh.read()
+    if listing() != before:
+        raise RuntimeError("the sky precompute wrote into the repository's "
+                           "sky caches")
+    record = dict(skybox_res=res, knobs={k: getattr(cfg, k)
+                                         for k in SKY_KNOBS},
+                  sun_dir=args[0].tolist(), sun_col=args[1].tolist(),
+                  cos_max=args[2], seed=1234, key=key, seconds=seconds)
+    return data, record
+
+
 def test_example6_gap_is_the_bf16_sky_maps(monkeypatch):
     """What separates the port's example6 from the full-width golden beyond
     a few pixels, shown at 128×72 on the CPU with 16 samples in one launch:
@@ -278,6 +361,27 @@ def test_example6_gap_is_the_bf16_sky_maps(monkeypatch):
     assert rmse["f32"] >= 5 * rmse["bf16"]
 
 
+def regen_sky(sizes=SKY_RES):
+    """Make the sky goldens of ``skybox_res`` in ``sizes``, one after the
+    other, and write each with its record as soon as it is made."""
+    import resource
+
+    for res in sizes:
+        data, record = make_sky_golden_jax(res)
+        record["peak_host_gib"] = (
+            resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20)
+        path = SKY_GOLDENS.get(res) or os.path.join(
+            GOLDEN_DIR, "torch_fullres", f"example6_sky_{res}.npz")
+        with open(path, "wb") as fh:
+            fh.write(data)
+        with open(path[:-len(".npz")] + ".json", "w") as fh:
+            json.dump(record, fh, indent=1)
+            fh.write("\n")
+        print(f"wrote {path}: {len(data)} bytes, key {record['key']}, "
+              f"{record['seconds']:.1f} s, peak host memory "
+              f"{record['peak_host_gib']:.2f} GiB", flush=True)
+
+
 def regen(name, frames=None, out_dir=None):
     """Render the golden ``name`` ('still', 'path' or 'restir') with the JAX
     package on the CPU and write it; print its seconds and the process's
@@ -317,15 +421,21 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(
         description="Remake a full-width golden with the JAX package.")
     ap.add_argument("--regen", nargs="?", const="still", required=True,
-                    choices=("still", "path", "restir"))
+                    choices=("still", "path", "restir", "sky"))
     ap.add_argument("--frames", default=None,
                     help="'path' only: frames to keep, e.g. 1,2,24")
     ap.add_argument("--out", default=None,
                     help="'path' only: write the kept frames here as fNN.png")
+    ap.add_argument("--sky-res", default=",".join(map(str, SKY_RES)),
+                    help="'sky' only: the skybox_res of each golden, made "
+                    "in this order")
     args = ap.parse_args()
     if (args.frames is None) != (args.out is None):
         ap.error("--frames and --out go together")
     sys.path.insert(0, ROOT)
+    if args.regen == "sky":
+        regen_sky(tuple(int(r) for r in args.sky_res.split(",")))
+        sys.exit(0)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
     regen(args.regen,

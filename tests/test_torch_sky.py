@@ -20,16 +20,20 @@ Tolerances, and why.
   differs in its last bit lands one of them in the neighbouring cell. At
   these test knobs (2 passes of 4 or 8 steps) one flipped lookup moves a
   texel by percents. XLA compiles the JAX package's chunk functions with
-  fused multiply-adds and a correctly rounded square root; the port forms
-  the positions that feed the lookups the same way (in float64, rounded
-  once), which leaves the texel directions (XLA's own sine, cosine and
-  reciprocal square root) as the cause of what still differs. The share is
-  printed and recorded in ROADMAP.md section 3; it measures 0.9589 to
-  0.9624 over the four cases and is asserted at 0.95, and the maps' RMSE
-  relative to their mean (measured: scattering up to 4.0e-2, transmittance
-  up to 6.1e-3) at 6e-2 and 1.5e-2: each share bar lies just under what was
-  measured, so that a fault which moves a few percent of the texels fails. The float64 oracle's end-to-end
-  check below holds the port's maps independently.
+  fused multiply-adds and a correctly rounded square root, and folds the
+  constant camera's ``-|pos|^2 + r*r`` into one constant; the port forms
+  the positions that feed the lookups and the camera's ray-sphere
+  intersections the same way (in float64, rounded once), which leaves the
+  texel directions (XLA's own sine, cosine and reciprocal square root, which
+  the port rounds correctly) as the cause of what still differs. The share
+  is printed and recorded in ROADMAP.md section 3; it measured 0.9589 to
+  0.9624 over the four cases before the camera's intersections were folded
+  and measures 0.9944 to 0.9985 since, asserted at 0.95; the maps' RMSE
+  relative to their mean measured up to 4.0e-2 (scattering) and 6.1e-3
+  (transmittance) before and up to 1.2e-3 and 5.5e-3 since, asserted at
+  6e-2 and 1.5e-2. tests/test_torch_sky_golden.py holds the port to the
+  JAX package's sky at the default knobs at the same bars. The float64
+  oracle's end-to-end check below holds the port's maps independently.
 * The oracle's bars are those of tests/test_oracle_sky.py."""
 
 import dataclasses
@@ -227,14 +231,16 @@ def test_texel_dirs_ulp_distance():
     """The texel directions, the one input of the sky's chunks where the
     packages still differ, held by their distance in ulps: every texel of a
     ``skybox_res=64`` sky (one chunk of 4,096), each component of the port's
-    direction against the JAX package's. Measured: at most 3 ulp, with 52%
-    of directions bit-equal; the bound is 4 ulp.
+    direction against the JAX package's. Measured: at most 3 ulp, with
+    85.6% of directions bit-equal (52% before the port rounded its sine,
+    cosine and reciprocal square root correctly); the bound is 4 ulp.
 
     No port can be bit-equal here. XLA compiles the JAX package's
     ``normalize`` (``jax.lax.rsqrt``) to the CPU's approximate reciprocal
     square root (``vrsqrtps``) with a refinement step, whose table differs
     between CPU vendors, and its ``sin``/``cos`` to XLA's own vector forms;
-    neither is correctly rounded, nor is torch's. The shares of 2,000,000
+    neither is correctly rounded, nor is torch's in float32 (the port takes
+    them in float64 and rounds once). The shares of 2,000,000
     random inputs that each package rounds correctly (against float64
     rounded once) are printed: sin and cos on [-pi, pi], rsqrt on
     [0.25, 4]."""

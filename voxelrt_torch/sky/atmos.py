@@ -50,7 +50,7 @@ import torch
 
 from voxelrt_torch import resolve_device
 from voxelrt_torch.ops import prng
-from voxelrt_torch.ops.sampling import (PI, dot, mix, normalize,
+from voxelrt_torch.ops.sampling import (PI, dot, mix,
                                         sample_cone_oriented, saturate)
 from voxelrt_torch.ops.texfetch import (bilinear_fetch_dirs,
                                         bilinear_fetch_dirs2,
@@ -130,12 +130,22 @@ def rsi(pos: V3, dir: V3, r):
     """Ray-sphere intersection (renderer/atmos.py:9-15); returns (near, far),
     (-1, -1) on miss."""
     b = _fdot(pos, dir)
-    # b*b - |pos|^2 cancels badly in float32 (both near 4e13 at sea level, an
-    # ulp of 4e6 m^2), so it is formed with one rounding, in float64: what the
-    # fused multiply-add gives that XLA emits for this expression.
     bd = b.to(torch.float64)
-    discr = (bd * bd - _fdot(pos, pos).to(torch.float64)).to(torch.float32) \
-        + r * r
+    if all(c.dim() == 0 for c in pos):
+        # A constant origin (the camera, which the JAX package's chunk
+        # functions capture as a constant): XLA folds -|pos|^2 + r*r into
+        # one float32 constant and fuses b*b + k into one multiply-add. The
+        # far distances are -b + sq with b and sq near 2e6 m for a ray from
+        # the ground, so one rounding more or less moves them by 0.25 m and
+        # a cloud march's step by 2e-4 of itself.
+        k = float(np.float32(r * r)) - _fdot(pos, pos)  # float32
+        discr = (bd * bd + k.to(torch.float64)).to(torch.float32)
+    else:
+        # b*b - |pos|^2 cancels badly in float32 (both near 4e13 at sea
+        # level, an ulp of 4e6 m^2), so it is formed with one rounding, in
+        # float64: what the fused multiply-add gives that XLA emits for it.
+        discr = (bd * bd - _fdot(pos, pos).to(torch.float64)).to(
+            torch.float32) + r * r
     miss = discr < 0.0
     sq = _sqrt(torch.clamp(discr, min=0.0))
     near = torch.where(miss, -1.0, -b - sq)
@@ -558,6 +568,7 @@ def atmospheric_scattering(cfg, ray_origin: V3, ray_dir: V3, sun_dir, sun_col,
     depend on that layout). Returns (in_scatter, transmittance) V3s."""
     dev = ray_dir.x.device
     shape = torch.broadcast_shapes(ray_origin.x.shape, ray_dir.x.shape)
+    origin = ray_origin  # a constant one stays 0-d for rsi
     ray_origin = map1(lambda c: c.expand(shape), ray_origin)
     ray_dir = map1(lambda c: c.expand(shape), ray_dir)
     n = shape[-1]
@@ -570,8 +581,8 @@ def atmospheric_scattering(cfg, ray_origin: V3, ray_dir: V3, sun_dir, sun_col,
     sun = splat(_f32(sun_dir, dev))
     sun_col_v = splat(_f32(sun_col, dev))
 
-    air_near, air_far = rsi(ray_origin, ray_dir, PLANET_R + ATMOS_HEIGHT)
-    planet_near, _ = rsi(ray_origin, ray_dir, PLANET_R)
+    air_near, air_far = rsi(origin, ray_dir, PLANET_R + ATMOS_HEIGHT)
+    planet_near, _ = rsi(origin, ray_dir, PLANET_R)
     air_far = torch.where(planet_near > 0.0,
                           torch.minimum(air_far, planet_near), air_far)
 
@@ -663,7 +674,12 @@ def project_sky(d, skybox_res):
 
 
 def unproject_sky(u, v, skybox_res) -> V3:
-    """The direction of the skybox coordinate (u, v) in [0, 1]^2."""
+    """The direction of the skybox coordinate (u, v) in [0, 1]^2: the
+    normalizing dot product fused as ``_fdot``, and the sine, cosine and
+    reciprocal square root correctly rounded (taken in float64, rounded
+    once), as XLA's are on most inputs. Its rsqrt is the CPU's approximate
+    one with a refinement step, whose last bits depend on the host, so no
+    port matches it everywhere."""
     fres = 1.0 / skybox_res
     cx = (u - 0.5 * fres) / (1.0 - fres)
     cy = (v - 0.5 * fres) / (1.0 - fres)
@@ -672,11 +688,14 @@ def unproject_sky(u, v, skybox_res) -> V3:
     cy = torch.where(cy < 0.5, -(a * a), b * b)
     azimuth = cx * 2.0 * PI - PI
     elevation = cy * 0.5 * PI
-    ce = torch.cos(elevation)
-    se = torch.sin(elevation)
-    ca = torch.cos(azimuth)
-    sa = torch.sin(azimuth)
-    return normalize(V3(ce * sa, se, -ce * ca))
+
+    def rounded(f, x):
+        return f(x.to(torch.float64)).to(torch.float32)
+
+    ce, se = rounded(torch.cos, elevation), rounded(torch.sin, elevation)
+    ca, sa = rounded(torch.cos, azimuth), rounded(torch.sin, azimuth)
+    d = V3(ce * sa, se, -ce * ca)
+    return d * rounded(torch.rsqrt, torch.clamp(_fdot(d, d), min=1e-20))
 
 
 def _bilinear_wrap(img, fx, fy, res):
