@@ -10,7 +10,9 @@ portable traversal and multi-device rendering; and the benchmark harness
 ``bench_torch.py``, B1 on ``tools/trace_bench_torch.py``'s ray sets and the
 still frame partitioned at dp=8 and dp=32; and example6 at full width held to
 the JAX package's golden images of it, its camera path and its ReSTIR
-render, and its sky computed on the card held to the JAX package's.
+render, and its sky computed on the card held to the JAX package's; and
+every other example, and example2's ReSTIR render, held to the JAX
+package's full-width golden of each.
 
     python3 chip_smoke.py
 
@@ -97,12 +99,22 @@ other knob at its default, computed on the card by ``Scene.finish`` from
 an empty cache, held to the JAX package's CPU sky of the same
 (``example6_sky_128.npz``) at tests/test_torch_sky.py's bars with the
 texels that miss split by layer, and its 16-sample image at 1280x720 held
-to the same render lit by the JAX package's sky at RMSE 0.015; 16
+to the same render lit by the JAX package's sky at RMSE 0.015; 33
+example2 (emissive voxels, no sun) with ReSTIR-PT at the JAX defaults, 4
+spp through ``Scene.finish``, held to the JAX package's CPU render of the
+same (``example2_restir_1280x720_4spp.png``) at RMSE 0.015; 16
 example7's sky computed on the card at the default knobs into an
 empty temporary cache, then found there, and the same sky at test knobs on
-the card against the CPU; 17 every example through
-``tools/run_example_torch.py``'s function at 16 spp; then the kernels JSON
-line, the card's name and power limit, and the
+the card against the CPU; 17 every example at its default config
+(1280x720) with one launch of 16 samples, through
+``tools/run_example_torch.py``'s function, each held to the JAX package's
+CPU render of the same (``tests/golden/torch_fullres/
+<name>_1280x720_16spp.png``, example6's phase 29's) at RMSE 0.015 with the
+share within 2/255 and the
+16 worst pixels, example7 and example10 lit by the JAX package's TINY_SKY
+sky of each (shipped beside their goldens), and example9's primaries'
+B1 dispatch held bit-equal to B1's twin on 4 of its 16 samples; then the
+kernels JSON line, the card's name and power limit, and the
 result line ``{"ok": true, "device": {...}}`` last. Every path is driven
 with the launch counters set to 0 just before it and read just after.
 Each kernel is timed twice: by CUDA events around ten calls of its Python
@@ -143,26 +155,33 @@ HOLD = {"dt": 0.02}
 N_MOVING, N_STILL = 24, 6
 B1_TWIN_SAMPLES = 4  # of a dispatch's 16 samples go through B1's slow twin
 EXAMPLE_SPP = 16
-EXAMPLE10_SKY_RES = 128  # its sky is computed at this size here, not 1024
-# (one 16,384-texel chunk; 256 before phase 32 was added)
 # Phase 29: the JAX package's example6 at 1280x720, one launch of 16 samples
-FULLRES_GOLDEN = os.path.join("tests", "golden", "torch_fullres",
-                              "example6_1280x720_16spp.png")
+GOLDEN_DIR = os.path.join("tests", "golden", "torch_fullres")
+FULLRES_GOLDEN = os.path.join(GOLDEN_DIR, "example6_1280x720_16spp.png")
 FULLRES_SPL = 16
 FULLRES_BAR = 0.015
+# Phase 17: every example the same way, held to the JAX package's render of
+# it (example6's is phase 29's golden); example7 and example10 lit by the
+# JAX package's TINY_SKY sky of each, shipped beside their goldens. Phase
+# 33: example2 with ReSTIR-PT at the JAX defaults, 4 spp.
+EXAMPLE_SKIES = ("example7", "example10")
+# scenes whose primaries' B1 dispatch phase 17 holds to B1's twin: example9's
+# gap to the JAX package's CPU render is traversal (B1's two-axis normals at
+# exact edge ties, which the JAX package's portable traversal does not make)
+TWIN_SCENES = ("example9",)
+EXAMPLE2_RESTIR_GOLDEN = os.path.join(GOLDEN_DIR,
+                                      "example2_restir_1280x720_4spp.png")
 # Phases 30-31: the JAX package's camera path (frames 24 and 30 of phase 9's
 # path) and ReSTIR render at 1280x720, both on the port's route
-PATH_GOLDENS = {n: os.path.join("tests", "golden", "torch_fullres",
-                                f"example6_path_f{n}.png") for n in (24, 30)}
+PATH_GOLDENS = {n: os.path.join(GOLDEN_DIR, f"example6_path_f{n}.png")
+                for n in (24, 30)}
 RESTIR_GOLDEN_SPP = 4
-RESTIR_GOLDEN = os.path.join("tests", "golden", "torch_fullres",
-                             "example6_restir_1280x720_4spp.png")
+RESTIR_GOLDEN = os.path.join(GOLDEN_DIR, "example6_restir_1280x720_4spp.png")
 # Phase 32: the JAX package's example6 sky at the default knobs, only
 # skybox_res cut (one 16,384-texel chunk, the full sky's chunk size), and
 # tests/test_torch_sky.py's bars for prepare_sky against the JAX package
 SKY_GOLDEN_RES = 128
-SKY_GOLDEN = os.path.join("tests", "golden", "torch_fullres",
-                          f"example6_sky_{SKY_GOLDEN_RES}.npz")
+SKY_GOLDEN = os.path.join(GOLDEN_DIR, f"example6_sky_{SKY_GOLDEN_RES}.npz")
 SKY_RTOL, SKY_ATOL = 2e-4, 1e-7
 SKY_SHARE_BAR = 0.95
 SKY_REL_RMSE_BARS = dict(scattering=6e-2, transmittance=1.5e-2)
@@ -363,41 +382,87 @@ def phase_sky(cache_dir):
     return out
 
 
-def phase_examples(sky_cache):
-    """Phase 17: every example at 1280x720, EXAMPLE_SPP spp, on the card,
-    through tools/run_example_torch.py's function. Sky scenes look in
-    ``sky_cache`` (example7's is there from phase 16) and in the repo's
-    shipped cache (example6's); example10's is computed here, at
-    EXAMPLE10_SKY_RES."""
+def shipped_sky(name, cache):
+    """Copies the JAX package's TINY_SKY sky of example ``name``
+    (``GOLDEN_DIR/<name>_sky_tiny.npz``) into ``cache`` as the
+    ``sky_<key>.npz`` its record names, where ``prepare_sky`` finds it;
+    returns that file's name."""
+    base = os.path.join(HERE, GOLDEN_DIR, f"{name}_sky_tiny")
+    with open(base + ".json") as fh:
+        file = f"sky_{json.load(fh)['key']}.npz"
+    shutil.copyfile(base + ".npz", os.path.join(cache, file))
+    return file
+
+
+def phase_examples(smi):
+    """Phase 17: every example at its default config (1280x720) with one
+    launch of EXAMPLE_SPP samples on the card, through
+    tools/run_example_torch.py's function, each held to the JAX package's
+    CPU render of the same (``GOLDEN_DIR``; example6's is phase 29's) with
+    ``held_to_golden``. example6 lights its scene from the repo's shipped
+    sky, example7 and example10 from the JAX package's TINY_SKY sky of
+    each; an empty cache must stay so. Fails on the first scene above
+    ``FULLRES_BAR``; returns the rows, each with the launches of its render
+    alone (the counters set to 0 just before it, read just after)."""
     import torch
 
     sys.path.insert(0, os.path.join(HERE, "tools"))
     from run_example_torch import run_example
 
     from voxelrt_torch.app.examples import NAMES
+    from voxelrt_torch.ops import _cuda
+    from voxelrt_torch.render import pathtracer as pt
 
     rows = []
     for name in NAMES:
         over = dict(samples_per_launch=EXAMPLE_SPP)
-        if name == "example10":
-            over["skybox_res"] = EXAMPLE10_SKY_RES
-        img, fig = run_example(name, None, (1280, 720), EXAMPLE_SPP,
-                               save=False, sky_cache_dir=sky_cache, **over)
-        fig.update(mean=float(img.mean()), std=float(img.std()),
-                   skybox_res=over.get("skybox_res"))
-        del fig["out"]
-        print(f"example {name}: {json.dumps(fig)}", flush=True)
-        if img.shape != (1280, 720, 3) or not np.isfinite(img).all():
-            fail(f"{name}: image is not finite or has the wrong shape")
-        if fig["std"] <= 1e-4:
+        with tempfile.TemporaryDirectory() as cache:
+            shipped = []
+            if name in EXAMPLE_SKIES:
+                shipped = [shipped_sky(name, cache)]
+                over.update(TINY_SKY)
+            rec = Recorder(pt, "raytrace", keep=4) if name in TWIN_SCENES \
+                else None
+            _cuda.reset_launch_counts()
+            try:
+                img, fig = run_example(name, None, (1280, 720), EXAMPLE_SPP,
+                                       save=False, sky_cache_dir=cache,
+                                       **over)
+            finally:
+                if rec is not None:
+                    rec.restore()
+            launches = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+            if sorted(os.listdir(cache)) != shipped:
+                fail(f"{name}: the sky was recomputed, not loaded")
+        if float(img.std()) <= 1e-4:
             fail(f"{name}: image is constant")
-        if fig["launches"]["traverse"] <= 0:
-            fail(f"{name}: B1 was not launched")
-        sky = name in ("example6", "example7", "example10")
+        sky = name in ("example6",) + EXAMPLE_SKIES
         for k in ("point_fetch", "bilinear_fetch_dirs"):
-            if (fig["launches"][k] > 0) != sky:
-                fail(f"{name}: {k} launches {fig['launches'][k]}, sky={sky}")
-        rows.append(fig)
+            if (launches.get(k, 0) > 0) != sky:
+                fail(f"{name}: {k} launches {launches.get(k, 0)}, sky={sky}")
+        golden = (FULLRES_GOLDEN if name == "example6" else
+                  os.path.join(GOLDEN_DIR,
+                               f"{name}_1280x720_{EXAMPLE_SPP}spp.png"))
+        out = held_to_golden(
+            f"17_{name}", img, golden, launches,
+            ("traverse",) + (("point_fetch", "bilinear_fetch_dirs")
+                             if sky else ()),
+            smi, name=name, spp=EXAMPLE_SPP, setup_s=fig["setup_s"],
+            render_s=fig["render_s"], sky=shipped[0] if shipped else None,
+            mean=float(img.mean()), std=float(img.std()))
+        report_golden("17", f"{name}, {EXAMPLE_SPP} spp in one launch "
+                      f"(set-up {fig['setup_s']:.2f} s, render "
+                      f"{fig['render_s']:.2f} s)", out)
+        if rec is not None:
+            # the primaries' dispatch (depth 0), the twin on
+            # B1_TWIN_SAMPLES of its 16 samples
+            out["b1_depth0"] = c = b1_check(rec.calls[0], chunk=1280 * 720,
+                                            max_chunks=B1_TWIN_SAMPLES)
+            print(f"B1 on {name}'s depth 0: {json.dumps(c)}", flush=True)
+            if not c["ok"]:
+                fail(f"B1 disagrees with its twin on {name}'s primaries")
+            del rec
+        rows.append(out)
         torch.cuda.empty_cache()
     return rows
 
@@ -2008,17 +2073,17 @@ def report_golden(phase, what, out, against="the JAX package's CPU render"):
              f"{FULLRES_BAR}")
 
 
-def finish_from_shipped_sky(tag, spp, **config_over):
-    """example6 through ``Scene.finish(spp)`` on the card at its default
-    config with ``config_over``, from the Scene's default seed, the sky
-    loaded from ``data/skycache/`` (an empty ``sky_cache_dir`` must stay
+def finish_from_shipped_sky(tag, spp, name="example6", **config_over):
+    """Example ``name`` through ``Scene.finish(spp)`` on the card at its
+    default config with ``config_over``, from the Scene's default seed, a
+    sky loaded from ``data/skycache/`` (an empty ``sky_cache_dir`` must stay
     empty); returns (image, Scene.finish seconds, launches)."""
     import torch
 
     from voxelrt_torch.ops import _cuda
 
     with tempfile.TemporaryDirectory() as cache:
-        scene = build_example("example6", None, sky_cache_dir=cache,
+        scene = build_example(name, None, sky_cache_dir=cache,
                               **config_over)
         _cuda.reset_launch_counts()
         t0 = time.perf_counter()
@@ -2067,6 +2132,17 @@ def phase_restir_golden(smi):
                           ("traverse", "traverse_shadow", "point_fetch",
                            "bilinear_fetch_dirs"),
                           smi, spp=RESTIR_GOLDEN_SPP, finish_s=finish_s)
+
+
+def phase_restir_example2_golden(smi):
+    """Phase 33: example2 (emissive voxels, no sun) with ReSTIR-PT at the
+    JAX defaults, ``RESTIR_GOLDEN_SPP`` spp through ``Scene.finish`` on the
+    card, held to ``EXAMPLE2_RESTIR_GOLDEN`` at RMSE ``FULLRES_BAR``."""
+    img, finish_s, launches = finish_from_shipped_sky(
+        "phase 33", RESTIR_GOLDEN_SPP, "example2", use_restir_pt=True)
+    return held_to_golden("33", img, EXAMPLE2_RESTIR_GOLDEN, launches,
+                          ("traverse",), smi, spp=RESTIR_GOLDEN_SPP,
+                          finish_s=finish_s)
 
 
 def sky_layers(cfg, args, golden_trans, device):
@@ -2674,22 +2750,33 @@ def main():
     sky_golden = timed("32", phase_sky_golden, smi)
     phase_launches["32"] = sky_golden["render"]["launches"]
     report_sky_golden(sky_golden)
-    print(f"phases 22-32, seconds each: "
-          f"{json.dumps({k: phase_s[k] for k in map(str, range(22, 33))})}"
+
+    # -- 33. example2 with ReSTIR against the JAX package's golden -----------
+    restir2_golden = counted("33", phase_restir_example2_golden, smi)
+    report_golden("33", f"example2 with ReSTIR-PT, {RESTIR_GOLDEN_SPP} spp, "
+                  f"Scene.finish {restir2_golden['finish_s']:.2f} s",
+                  restir2_golden)
+    print(f"phases 22-33, seconds each: "
+          f"{json.dumps({k: phase_s[k] for k in map(str, range(22, 34))})}"
           f", launches: {json.dumps(phase_launches)}", flush=True)
 
-    # -- 16. a full-size sky on the card; 17. every example ---------------------
+    # -- 16. a full-size sky on the card ---------------------------------------
     with tempfile.TemporaryDirectory() as sky_cache:
         sky = phase_sky(sky_cache)
-        print(f"sky precompute: example7's sky at the default knobs "
-              f"({sky['skybox_res']}^2 texels) on the card: "
-              f"{json.dumps(sky)}", flush=True)
-        _cuda.reset_launch_counts()
-        examples = phase_examples(sky_cache)
-        ex_launches = dict(_cuda.LAUNCHES)
+    print(f"sky precompute: example7's sky at the default knobs "
+          f"({sky['skybox_res']}^2 texels) on the card: {json.dumps(sky)}",
+          flush=True)
+
+    # -- 17. every example against the JAX package's golden ------------------
+    examples = timed("17", phase_examples, smi)
+    # the scenes' own launches, each counted from 0 around its render
+    ex_launches = dict(sum((collections.Counter(e["launches"])
+                            for e in examples), collections.Counter()))
+    phase_launches["17"] = ex_launches
     print(f"examples: {len(examples)} scenes at 1280x720, {EXAMPLE_SPP} spp, "
-          f"{sum(e['setup_s'] + e['render_s'] for e in examples):.1f} s, "
-          f"launches {ex_launches}", flush=True)
+          f"{sum(e['setup_s'] + e['render_s'] for e in examples):.1f} s of "
+          f"set-up and render, phase {phase_s['17']:.1f} s, "
+          f"launches {json.dumps(ex_launches)}", flush=True)
 
     if "jax" in sys.modules or "voxelrt" in sys.modules:
         fail("the port imported jax or the voxelrt package")
@@ -2884,7 +2971,7 @@ def main():
              variant_loop_ns_per_iter={
                  k: f["loop_ns_per_iter"] for k, f in probe["table"].items()}),
     ]
-    # each kernel's launches in phases 22-32, by its counter
+    # each kernel's launches in phases 17 and 22-33, by its counter
     counter = {"B1 traverse": "traverse", "B2 point_fetch_words": "point_fetch",
                "B3 bilinear_fetch_dirs": "bilinear_fetch_dirs",
                "B3 bilinear_fetch_dirs2": "bilinear_fetch_dirs2",
@@ -2914,7 +3001,8 @@ def main():
                        new_phase_launches=phase_launches, bench=bench,
                        trace_bench=trace_bench, multichip_report=multichip,
                        fullres_golden=fullres, path_golden=path_golden,
-                       restir_golden=restir_golden, sky_golden=sky_golden),
+                       restir_golden=restir_golden, sky_golden=sky_golden,
+                       restir_example2_golden=restir2_golden),
                   fh, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -10,9 +10,10 @@ package's (``python tests/test_torch_golden.py --regen path --frames
                                        [--frames 1,2,4,8,12,16,20,24,25,30]
     python3 tools/path_frames_torch.py compare DIR_A DIR_B
     python3 tools/path_frames_torch.py stages [--device cuda] [--against cpu]
-                                       [--out chiprun_out/frame1_stages.json]
+                                       [--scene NAME] [--out FILE]
     python3 tools/path_frames_torch.py ops [--device cuda] [--against cpu]
-                                       [--res 320x180] [--align OPS ...]
+                                       [--scene NAME] [--res 320x180]
+                                       [--align OPS ...]
 
 ``render`` writes ``OUT/fNN.png`` for each frame counted from 1 (on the
 CUDA card unless ``--device`` names another). ``compare`` prints one JSON
@@ -33,6 +34,13 @@ earlier stage's difference; and ``own``, the ``--device`` run's output
 against the stage run on ``--against`` with the ``--device`` run's inputs,
 the stage's own part. The tonemap's 8-bit channels one level above and
 below come with both.
+
+With ``--scene NAME`` both split that example's still launch in place of
+frame 1: one launch of 16 samples through ``Scene.finish``, as
+``chip_smoke.py`` phase 17 and the example's full-width golden render it
+(example7 and example10 lit by their shipped TINY_SKY sky); a still launch
+calls no B4. The result goes to ``chiprun_out/<scene>_stages.json`` or
+``<scene>_ops.json`` unless ``--out`` names another file.
 
 ``ops`` goes one level down, into frame 1's trace at ``--res``: every
 PyTorch operator the trace dispatches on ``--device`` is run again on
@@ -56,7 +64,8 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from chip_smoke import HOLD, MOVE, N_MOVING, N_STILL  # noqa: E402
+from chip_smoke import (EXAMPLE_SKIES, EXAMPLE_SPP, HOLD, MOVE,  # noqa: E402
+                        N_MOVING, N_STILL, TINY_SKY, shipped_sky)
 
 FRAMES = [MOVE] * N_MOVING + [HOLD] * N_STILL
 KEEP = (1, 2, 4, 8, 12, 16, 20, 24, 25, 30)
@@ -132,10 +141,33 @@ def _outputs(x):
             if isinstance(v, torch.Tensor)}
 
 
-def frame1_stages(device):
-    """Frame 1 of the path on ``device``: each stage's calls in order, as
-    (stage, function, args, kwargs, output)."""
+def drive(device, scene=None, res=None):
+    """Renders frame 1 of the path on ``device`` or, with ``scene``, that
+    example's still launch as ``chip_smoke.py`` phase 17 and its golden
+    render it: one launch of ``EXAMPLE_SPP`` samples through
+    ``Scene.finish``, example7 and example10 lit by their shipped TINY_SKY
+    sky; at ``res`` (default 1280x720)."""
+    import tempfile
+
     from voxelrt_torch.app.examples import build_example
+
+    if scene is None:
+        build_example("example6", device, res).run_frames(
+            [dict(FRAMES[0])], on_frame=lambda i, img: None)
+        return
+    over = dict(samples_per_launch=EXAMPLE_SPP)
+    with tempfile.TemporaryDirectory() as cache:
+        if scene in EXAMPLE_SKIES:
+            shipped_sky(scene, cache)
+            over.update(TINY_SKY)
+        build_example(scene, device, res, sky_cache_dir=cache,
+                      **over).finish(spp=EXAMPLE_SPP, save=False)
+
+
+def frame1_stages(device, scene=None):
+    """Frame 1 of the path (or ``scene``'s still launch, see ``drive``) on
+    ``device``: each stage's calls in order, as (stage, function, args,
+    kwargs, output)."""
     from voxelrt_torch.render import pipeline, temporal
 
     hooks = [(pipeline, "trace_frame", "trace"),
@@ -157,8 +189,7 @@ def frame1_stages(device):
     for (m, name, stage), (_, _, fn) in zip(hooks, origs):
         setattr(m, name, hook(fn, stage))
     try:
-        build_example("example6", device).run_frames(
-            [dict(FRAMES[0])], on_frame=lambda i, img: None)
+        drive(device, scene)
     finally:
         for m, name, fn in origs:
             setattr(m, name, fn)
@@ -179,11 +210,12 @@ def _levels(a, b):
                 beyond=int((np.abs(d) > 1).sum()))
 
 
-def stages(device, against, out_path):
-    """Frame 1's stages on ``device`` against ``against``, printed as JSON
-    lines and written to ``out_path``."""
-    a_calls = frame1_stages(device)
-    b_calls = frame1_stages(against)
+def stages(device, against, out_path, scene=None):
+    """Frame 1's stages (or ``scene``'s still launch's) on ``device``
+    against ``against``, printed as JSON lines and written to
+    ``out_path``."""
+    a_calls = frame1_stages(device, scene)
+    b_calls = frame1_stages(against, scene)
     if [c[0] for c in a_calls] != [c[0] for c in b_calls]:
         raise SystemExit("the two runs called the stages in another order")
     rows = []
@@ -207,15 +239,17 @@ def stages(device, against, out_path):
     from tools.torch_measure import card_name
 
     card = card_name(torch.device(device))
-    print(f"frame 1, {device} against {against}, on {card}", flush=True)
+    what = f"{scene}'s still launch" if scene else "frame 1"
+    print(f"{what}, {device} against {against}, on {card}", flush=True)
     os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
     with open(out_path, "w") as fh:
-        json.dump(dict(device=device, against=against, card=card, rows=rows),
-                  fh, indent=1)
+        json.dump(dict(device=device, against=against, scene=scene,
+                       card=card, rows=rows), fh, indent=1)
 
 
-def trace_ops(device, against, res, out_path, aligns=()):
-    """Frame 1's trace at ``res`` on ``device``, each PyTorch operator run
+def trace_ops(device, against, res, out_path, aligns=(), scene=None):
+    """Frame 1's trace (or ``scene``'s still launch's, see ``drive``) at
+    ``res`` on ``device``, each PyTorch operator run
     again on ``against`` with the same inputs; by operator, printed as JSON
     lines (the most unequal first) and written to ``out_path``, with the
     trace's diffuse colour against ``against``'s. Each entry of ``aligns``
@@ -228,7 +262,6 @@ def trace_ops(device, against, res, out_path, aligns=()):
     from torch.utils._python_dispatch import TorchDispatchMode
 
     from tools.torch_measure import card_name
-    from voxelrt_torch.app.examples import build_example
     from voxelrt_torch.render import pipeline
 
     here, other = torch.device(device), torch.device(against)
@@ -291,8 +324,7 @@ def trace_ops(device, against, res, out_path, aligns=()):
 
         pipeline.trace_frame = traced
         try:
-            build_example("example6", dev, res).run_frames(
-                [dict(FRAMES[0])], on_frame=lambda i, img: None)
+            drive(dev, scene, res)
         finally:
             pipeline.trace_frame = trace
         return by_op, colors[0]
@@ -305,7 +337,8 @@ def trace_ops(device, against, res, out_path, aligns=()):
     for r in rows:
         if r["unequal"]:
             print(json.dumps(r), flush=True)
-    print(f"frame 1's trace at {res[0]}x{res[1]}, {device} against "
+    what = f"{scene}'s still launch" if scene else "frame 1"
+    print(f"{what}'s trace at {res[0]}x{res[1]}, {device} against "
           f"{against}, {sum(r['calls'] for r in rows)} operator calls, on "
           f"{card}", flush=True)
     colors = {"none": _signs(color, ref_color)}
@@ -316,12 +349,14 @@ def trace_ops(device, against, res, out_path, aligns=()):
         print(json.dumps(dict(aligned=align, color=c)), flush=True)
     os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
     with open(out_path, "w") as fh:
-        json.dump(dict(device=device, against=against, res=list(res),
-                       card=card, ops=rows, color_by_aligned=colors), fh,
-                  indent=1)
+        json.dump(dict(device=device, against=against, scene=scene,
+                       res=list(res), card=card, ops=rows,
+                       color_by_aligned=colors), fh, indent=1)
 
 
 def main():
+    from voxelrt_torch.app.examples import NAMES
+
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
     r = sub.add_parser("render")
@@ -334,27 +369,36 @@ def main():
     st = sub.add_parser("stages")
     st.add_argument("--device", default="cuda")
     st.add_argument("--against", default="cpu")
-    st.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
-                                                  "frame1_stages.json"))
+    st.add_argument("--out", default=None,
+                    help="default chiprun_out/frame1_stages.json, or "
+                    "<scene>_stages.json")
     o = sub.add_parser("ops")
     o.add_argument("--device", default="cuda")
     o.add_argument("--against", default="cpu")
     o.add_argument("--res", default="320x180")
-    o.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
-                                                 "frame1_ops.json"))
+    o.add_argument("--out", default=None,
+                   help="default chiprun_out/frame1_ops.json, or "
+                   "<scene>_ops.json")
     o.add_argument("--align", nargs="*", default=[],
                    help="operator sets (names joined by commas, or 'all') "
                    "whose outputs are taken from --against, one run each")
+    for p in (st, o):
+        p.add_argument("--scene", default=None, choices=NAMES,
+                       help="an example's still launch in place of frame 1 "
+                       "of the path")
     args = ap.parse_args()
+    if args.cmd in ("stages", "ops") and args.out is None:
+        args.out = os.path.join(ROOT, "chiprun_out",
+                                f"{args.scene or 'frame1'}_{args.cmd}.json")
     if args.cmd == "ops":
         trace_ops(args.device, args.against,
                   tuple(int(x) for x in args.res.split("x")), args.out,
-                  args.align)
+                  args.align, args.scene)
     elif args.cmd == "render":
         render(args.out, args.device,
                {int(n) for n in args.frames.split(",")})
     elif args.cmd == "stages":
-        stages(args.device, args.against, args.out)
+        stages(args.device, args.against, args.out, args.scene)
     else:
         compare(args.dir_a, args.dir_b)
 
