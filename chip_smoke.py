@@ -12,7 +12,8 @@ still frame partitioned at dp=8 and dp=32; and example6 at full width held to
 the JAX package's golden images of it, its camera path and its ReSTIR
 render, and its sky computed on the card held to the JAX package's; and
 every other example, and example2's ReSTIR render, held to the JAX
-package's full-width golden of each.
+package's full-width golden of each; example6 at the reference's own
+1920x1080 and example7's low-sun sky held to the JAX package's.
 
     python3 chip_smoke.py
 
@@ -52,7 +53,10 @@ no kernel in this process), 18 example6 with ReSTIR-PT at the JAX defaults
 (32 taps, radius 24, one sample a launch): 8 spp counted, the last 4 for
 the steady rate, a profiled launch and GRIS pass, and B1's GRIS revalidation
 dispatch, B2's inline escape fetch at depth 1 and B3's call in the GRIS pass
-on packed directions against their twins by int32 bits; 19 the main path with
+on packed directions against their twins by int32 bits, the revalidation
+rays' most advances held under B1's advance cap (rays at the cap written to
+``chiprun_out/example6_restir_capped_rays.npz`` before the run fails); 19 the
+main path with
 ``sort_rays=True`` and with ``rng_draws='table'``, each timed against the
 default route in turns, the sorted dispatches unsorted back held bitwise to
 B1 in ray order, and on each route a depth-1 B1 dispatch, B2 and B3 held to
@@ -80,9 +84,11 @@ process, its one JSON line printed here and its info dict with
 sets: B1's device ms, bound share, advance and slowest-warp statistics, and
 on a sample of each set every output bit-equal to B1's twin; 28
 ``tools/multichip_report_torch.py``'s report at dp=8 (160-row blocks) and
-dp=32 (40-row blocks, off the tile columns): two launches of example6's
-still step, every field equal to one device's, halo rows and bytes, device
-ms and peak memory beside one device's; 29 example6 at its default config
+dp=32 (40-row blocks, off the tile columns), and at dp=4 x sp=2 (each
+block's samples over two devices, the trace gathered): two launches of
+example6's still step, every field equal to one device's, halo rows and
+bytes, device ms and peak memory beside one device's; 29 example6 at its
+default config
 (1280x720) with 16 samples in one launch through ``Scene.finish``, held to
 the JAX package's CPU render of the same
 (``tests/golden/torch_fullres/``) at RMSE 0.015, the examples' golden
@@ -102,10 +108,22 @@ texels that miss split by layer, and its 16-sample image at 1280x720 held
 to the same render lit by the JAX package's sky at RMSE 0.015; 33
 example2 (emissive voxels, no sun) with ReSTIR-PT at the JAX defaults, 4
 spp through ``Scene.finish``, held to the JAX package's CPU render of the
-same (``example2_restir_1280x720_4spp.png``) at RMSE 0.015; 16
-example7's sky computed on the card at the default knobs into an
-empty temporary cache, then found there, and the same sky at test knobs on
-the card against the CPU; 17 every example at its default config
+same (``example2_restir_1280x720_4spp.png``) at RMSE 0.015; 34 example6
+at 1920x1080, one launch of 16 samples through ``Scene.finish`` and phase
+9's camera path through ``Scene.run_frames``, held to the JAX package's
+CPU renders of the same (``example6_1920x1080_16spp.png``,
+``example6_path_1080p_f24.png``, ``..._f30.png``) at RMSE 0.015, the
+960x540 moving frames' lanes in column order (the grid does not tile), with
+per_spp_ms, the frames' wall ms and the peak memory, and on another still
+launch's own calls B1's four dispatches (the twin on the last of the 16
+samples, the highest lane indices), B2 and B3, and on the last moving
+frame's two calls B4, each bit-equal to its twin; 16 example7's low-sun
+sky at ``skybox_res=128`` and every other knob at its default, computed on
+the card into an empty temporary cache, then found there, held to the JAX
+package's CPU sky of the same (``example7_sky_128.npz``) at phase 32's
+bars, and the same light at test knobs and 256x256 (four chunks, which
+the card batches) on the card against the CPU; 17 every
+example at its default config
 (1280x720) with one launch of 16 samples, through
 ``tools/run_example_torch.py``'s function, each held to the JAX package's
 CPU render of the same (``tests/golden/torch_fullres/
@@ -128,6 +146,7 @@ before the result line. Without a CUDA card it exits 1 at once.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import json
 import os
@@ -177,6 +196,13 @@ PATH_GOLDENS = {n: os.path.join(GOLDEN_DIR, f"example6_path_f{n}.png")
                 for n in (24, 30)}
 RESTIR_GOLDEN_SPP = 4
 RESTIR_GOLDEN = os.path.join(GOLDEN_DIR, "example6_restir_1280x720_4spp.png")
+# Phase 34: example6 at the reference's own 1920x1080 (scene.py's default
+# image_res), the still launch and the camera path as phases 29 and 30 take
+# them, held to the JAX package's renders of the same
+REF_RES = (1920, 1080)
+REF_GOLDEN = os.path.join(GOLDEN_DIR, "example6_1920x1080_16spp.png")
+REF_PATH_GOLDENS = {n: os.path.join(GOLDEN_DIR, f"example6_path_1080p_f{n}.png")
+                    for n in (24, 30)}
 # Phase 32: the JAX package's example6 sky at the default knobs, only
 # skybox_res cut (one 16,384-texel chunk, the full sky's chunk size), and
 # tests/test_torch_sky.py's bars for prepare_sky against the JAX package
@@ -186,6 +212,17 @@ SKY_RTOL, SKY_ATOL = 2e-4, 1e-7
 SKY_SHARE_BAR = 0.95
 SKY_REL_RMSE_BARS = dict(scattering=6e-2, transmittance=1.5e-2)
 SKY_AMBIENT_ATOL, SKY_LUT_ATOL = 1e-6, 2e-6
+# Phase 16: example7's low-sun sky the same way (its own light, night
+# settings), computed on the card and held to the JAX package's at these bars
+SKY7_GOLDEN_RES = 128
+SKY7_GOLDEN = os.path.join(GOLDEN_DIR, f"example7_sky_{SKY7_GOLDEN_RES}.npz")
+# and at TINY_SKY knobs on the card against the CPU at this size: four
+# 16,384-texel chunks, which the card's memory budget puts through each
+# tensor op at once (the batched chunk axis with its per-chunk keys)
+SKY_BATCHED_RES = 256
+# Phase 18: the revalidation rays that reach B1's advance cap, kept for the
+# CPU's four traversals (tests/test_torch_capped_rays.py)
+CAPPED_RAYS = "example6_restir_capped_rays.npz"
 RESTIR_SPP = 8  # one sample a launch on the ReSTIR path; the second half
 # of them gives its steady rate (16 before phase 32 was added)
 ROUTE_SPP = 32  # a timed turn of phase 19: two 16-sample launches
@@ -218,6 +255,30 @@ EDGE_DIRS = [(0.0, 1.0, 0.0), (-0.0, -1.0, -0.0), (0.0, -1.0, -0.0),
 def fail(msg):
     print(f"FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+@contextlib.contextmanager
+def render_timer(r):
+    """While open, each ``r.render`` call's wall seconds, synchronised at
+    both ends, go to the yielded dict's ``render_s``."""
+    import torch
+
+    timing = {}
+    orig = type(r).render
+
+    def timed(self, *a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = orig(self, *a, **k)
+        torch.cuda.synchronize()
+        timing["render_s"] = time.perf_counter() - t
+        return out
+
+    type(r).render = timed
+    try:
+        yield timing
+    finally:
+        type(r).render = orig
 
 
 def cuda_ms(fn, reps):
@@ -311,16 +372,26 @@ def sky_args(scene):
 
 
 def phase_sky(cache_dir):
-    """Phase 16: example7's sky at the default knobs, on the card, into the
-    empty ``cache_dir``; the second call must find it there. Then the same
-    sky at TINY_SKY knobs on the card and on the CPU."""
+    """Phase 16: example7's low-sun sky at ``skybox_res=SKY7_GOLDEN_RES``
+    and every other knob at its default, computed on the card into the
+    empty ``cache_dir`` (the second call must find it there) and held to
+    the JAX package's CPU sky of the same (``SKY7_GOLDEN``) at phase 32's
+    bars. Then the same light at TINY_SKY knobs and ``skybox_res =
+    SKY_BATCHED_RES`` on the card and on the CPU: the card must batch
+    its chunks (``chunks_per_batch`` above 1)."""
     import torch
 
     from voxelrt_torch.sky import atmos
 
-    scene = build_example("example7", None)
+    scene = build_example("example7", None, skybox_res=SKY7_GOLDEN_RES)
     cfg = scene.renderer.cfg
     args = sky_args(scene)
+    with open(os.path.join(HERE, SKY7_GOLDEN[:-len(".npz")] + ".json")) as fh:
+        record = json.load(fh)
+    key = atmos._cache_key(cfg, *args)
+    if key != record["key"]:
+        fail(f"phase 16: the port keys example7's sky {key}, the golden "
+             f"{record['key']}")
     if os.listdir(cache_dir) or atmos.load_sky(
             cfg, *args, "cpu", cache_dir) is not None:
         fail("phase 16 needs a sky that no cache holds")
@@ -350,18 +421,29 @@ def phase_sky(cache_dir):
     if not hit.get("cache_hit") or not np.array_equal(
             again.skybox_scattering, sky.skybox_scattering):
         fail("the second prepare_sky did not load the cached sky")
-    del sky, again
+    with tempfile.TemporaryDirectory() as gdir:
+        shutil.copyfile(os.path.join(HERE, SKY7_GOLDEN),
+                        os.path.join(gdir, f"sky_{key}.npz"))
+        golden = atmos.load_sky(cfg, *args, "cpu", gdir)
+    agree = sky_agreement(cfg, args, sky, golden, torch.device("cuda"))
+    del sky, again, golden, scene
     torch.cuda.empty_cache()
-    tiny = dataclasses.replace(cfg, **TINY_SKY)
+    tiny = dataclasses.replace(cfg, **dict(TINY_SKY,
+                                           skybox_res=SKY_BATCHED_RES))
     maps = {}
     tiny_s = {}
+    tiny_stats = {"cuda": {}, "cpu": {}}
     for d in ("cuda", "cpu"):
         with tempfile.TemporaryDirectory() as tmp:
             t0 = time.perf_counter()
             maps[d] = atmos.prepare_sky(tiny, *args, quiet=True,
-                                        cache_dir=tmp, device=d)
+                                        cache_dir=tmp, device=d,
+                                        stats=tiny_stats[d])
             tiny_s[d] = time.perf_counter() - t0
-    ok = np.ones((TINY_SKY["skybox_res"],) * 2, bool)
+    if not tiny_stats["cuda"]["chunks_per_batch"] > 1:
+        fail(f"phase 16: the card put {tiny_stats['cuda']['chunks_per_batch']}"
+             f" chunk(s) of the {SKY_BATCHED_RES}^2 sky through each op")
+    ok = np.ones((SKY_BATCHED_RES,) * 2, bool)
     for f in ("skybox_scattering", "skybox_transmittance"):
         ok &= np.isclose(getattr(maps["cuda"], f), getattr(maps["cpu"], f),
                          rtol=2e-4, atol=1e-7).all(-1)
@@ -369,7 +451,12 @@ def phase_sky(cache_dir):
                cloud_s=stats["cloud_s"], sky_s=stats["sky_s"],
                chunks_per_batch=stats["chunks_per_batch"], peak_gb=peak_gb,
                eager_kernels=ops.count, cache_hit_s=hit_s,
-               tiny_card_s=tiny_s["cuda"], tiny_cpu_s=tiny_s["cpu"],
+               golden=SKY7_GOLDEN, key=key,
+               golden_seconds_on_cpu=record["seconds"], agreement=agree,
+               tiny_res=SKY_BATCHED_RES, tiny_card_s=tiny_s["cuda"],
+               tiny_cpu_s=tiny_s["cpu"],
+               tiny_chunks_per_batch={d: v["chunks_per_batch"]
+                                      for d, v in tiny_stats.items()},
                tiny_share_outside=float(1.0 - ok.mean()))
     # Texels of the cloud layer flip on a last-bit difference (a density
     # lookup lands in the neighbouring texture cell): 2.9% of them between
@@ -380,6 +467,50 @@ def phase_sky(cache_dir):
     if out["tiny_share_outside"] > 0.04:
         fail("the card's sky disagrees with the CPU's")
     return out
+
+
+def check_sky_bars(phase, a):
+    """Fails unless ``sky_agreement``'s figures ``a`` meet phase 32's
+    bars: the texel share, both relative RMSEs, the cloud ambient and the
+    transmittance LUT."""
+    if a["share"] < SKY_SHARE_BAR:
+        fail(f"phase {phase}: {a['share']} of the sky's texels within "
+             f"tolerance, under {SKY_SHARE_BAR}")
+    for m, bar in SKY_REL_RMSE_BARS.items():
+        if not a[f"rel_rmse_{m}"] < bar:
+            fail(f"phase {phase}: the sky's {m} relative RMSE "
+                 f"{a[f'rel_rmse_{m}']} is not under {bar}")
+    if not (a["ambient_ok"] and a["lut_ok"]):
+        fail(f"phase {phase}: the cloud ambient or the transmittance LUT is "
+             "off the JAX package's")
+
+
+def report_sky(out):
+    """Prints phase 16's row; fails on any miss of phase 32's bars."""
+    a = out["agreement"]
+    print(f"sky precompute (16): example7's low-sun sky at "
+          f"{out['skybox_res']}^2 and the default knobs, computed on the "
+          f"card into an empty cache in {out['total_s']:.2f} s (the JAX "
+          f"package on the CPU {out['golden_seconds_on_cpu']:.1f} s), "
+          f"against the JAX package's ({out['golden']}): {a['share']:.6f} "
+          f"of texels within rtol {SKY_RTOL} / atol {SKY_ATOL} (bar "
+          f"{SKY_SHARE_BAR}; {a['missed']} miss), relative RMSE scattering "
+          f"{a['rel_rmse_scattering']:.3e} (bar "
+          f"{SKY_REL_RMSE_BARS['scattering']}), transmittance "
+          f"{a['rel_rmse_transmittance']:.3e} (bar "
+          f"{SKY_REL_RMSE_BARS['transmittance']}), cloud ambient "
+          f"{a['ambient_max_abs']:.3e} apart, LUT {a['lut_max_abs']:.3e}; "
+          f"the texels that miss by layer {json.dumps(a['layers'])}; "
+          f"{json.dumps({k: v for k, v in out.items() if k != 'agreement'})}",
+          flush=True)
+    print(f"sky precompute (16): the same light at TINY_SKY knobs and "
+          f"{out['tiny_res']}^2, card against CPU: "
+          f"{out['tiny_share_outside']:.6f} of texels outside rtol 2e-4 / "
+          f"atol 1e-7 (bar 0.04), chunks a tensor op "
+          f"{json.dumps(out['tiny_chunks_per_batch'])}, card "
+          f"{out['tiny_card_s']:.2f} s, CPU {out['tiny_cpu_s']:.2f} s",
+          flush=True)
+    check_sky_bars("16", a)
 
 
 def shipped_sky(name, cache):
@@ -801,7 +932,7 @@ def phase_restir(main_steady_ms):
           f"{json.dumps(gris_prof)}", flush=True)
     if prof["by_group_ms"]["traverse_kernel"] <= 0.0:
         fail("the profiled ReSTIR launch shows no B1 device time")
-    del gargs, gkw, rec_gris
+    del rec_gris
 
     calls = rec_b1.calls
     args, kw = calls[-1]
@@ -810,9 +941,19 @@ def phase_restir(main_steady_ms):
         fail("ReSTIR path: the last B1 dispatch is not the revalidation")
     reval = b1_check(calls[-1], chunk=w * h)
     print(f"B1 GRIS revalidation: {json.dumps(reval)}", flush=True)
+    print(f"B1 GRIS revalidation: most advances of a ray "
+          f"{reval['most_advances_of_a_ray']} of {reval['n']}, B1's cap "
+          f"{reval['advance_cap']}", flush=True)
     if not reval["ok"]:
         fail("B1's revalidation dispatch disagrees with its twin")
-    del rec_b1, calls, args, kw
+    # its empty samples' zero-direction rays are misses short of the cap
+    # (ROADMAP.md §3 item 7); rays at the cap are written out for the CPU's
+    # four traversals before the run fails
+    if not reval["most_advances_of_a_ray"] < reval["advance_cap"]:
+        n_capped = write_capped_rays(calls[-1], w * h, gargs, gkw)
+        fail(f"{n_capped} revalidation rays ran to B1's advance cap; "
+             f"written to chiprun_out/{CAPPED_RAYS}")
+    del rec_b1, calls, args, kw, gargs, gkw
     # the depth-1 escape fetch's scattering words
     b2 = b2_check(*rec_b2.calls[2][0])
     print(f"B2 inline escape fetch at depth 1: {json.dumps(b2)}", flush=True)
@@ -834,6 +975,63 @@ def phase_restir(main_steady_ms):
                 peak_gb=peak_gb, launches=launches, profile=prof,
                 gris_ms=gris_ms, gris_profile=gris_prof, b1=reval, b2=b2,
                 b3=b3)
+
+
+def write_capped_rays(rec_args, chunk, gargs, gkw):
+    """Writes the rays of the recorded revalidation dispatch ``rec_args``
+    whose advances reached B1's cap (``capped_rays``), each with whether
+    its sample is an escape (``revalidation_escapes`` on the GRIS pass
+    ``spatial_gris(*gargs, **gkw)``), to ``chiprun_out/CAPPED_RAYS``;
+    returns their count."""
+    escape = revalidation_escapes(gargs, gkw, rec_args[0])
+    capped = b1_check(rec_args, chunk=chunk, capture=True)["capped"]
+    capped["escape"] = escape[capped["index"]].astype(np.uint8)
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    np.savez_compressed(os.path.join(HERE, "chiprun_out", CAPPED_RAYS),
+                        **capped)
+    return int(capped["index"].size)
+
+
+def revalidation_escapes(gargs, gkw, b1_args):
+    """Reruns the GRIS pass ``spatial_gris(*gargs, **gkw)`` and returns,
+    per pixel as numpy bools, whether the sample its visibility
+    revalidation traces towards is an escape (``rc_normal`` zero: the
+    ``escape`` mask the pass computes just before that dispatch, whose
+    ``occluded`` test then cannot fire). The rerun's revalidation rays
+    must be ``b1_args``' own, the recorded dispatch's."""
+    import torch
+
+    from voxelrt_torch.render import pathtracer as pt
+    from voxelrt_torch.render import restir as rs
+
+    seen = dict(zero=None, escape=None, rays=None)
+    is_zero, next_hit, raytrace = rs._is_zero3, pt.next_hit, pt.raytrace
+
+    def zero(a):
+        seen["zero"] = out = is_zero(a)
+        return out
+
+    def hit(*a, shadow_ray=False, **k):
+        if shadow_ray:
+            seen["escape"] = seen["zero"]
+        return next_hit(*a, shadow_ray=shadow_ray, **k)
+
+    def trace(*a, **k):
+        if k.get("any_hit") and not k.get("use_sun_open"):
+            seen["rays"] = (a[1], a[2])
+        return raytrace(*a, **k)
+
+    rs._is_zero3, pt.next_hit, pt.raytrace = zero, hit, trace
+    try:
+        rs.spatial_gris(*gargs, **gkw)
+    finally:
+        rs._is_zero3, pt.next_hit, pt.raytrace = is_zero, next_hit, raytrace
+    if seen["escape"] is None or seen["rays"] is None or not all(
+            torch.equal(a, b) for x, y in zip(seen["rays"], b1_args[1:3])
+            for a, b in zip(x, y)):
+        fail("ReSTIR path: the GRIS pass's rerun did not trace the "
+             "recorded revalidation rays")
+    return seen["escape"].cpu().numpy()
 
 
 def phase_routes():
@@ -1090,16 +1288,19 @@ class AdvanceTally:
     """Inside a ``with`` block, sums the advances of every march the twin
     runs (``dda_kernel._run``), in call order: within one twin call the
     primaries' march comes first, then the NEE shadow rays' if any; and
-    keeps the most advances any one ray took."""
+    keeps the most advances any one ray took, and the final state of each
+    march (``states``)."""
 
     def __enter__(self):
         from voxelrt_torch.ops import dda_kernel as dk
 
         self.dk, self.orig, self.sums, self.most = dk, dk._run, [], 0
+        self.states = []
 
         def run(*a, **k):
             st = self.orig(*a, **k)
             self.sums.append(int(st["adv"].sum().item()))
+            self.states.append(st)
             if st["adv"].numel():
                 self.most = max(self.most, int(st["adv"].max().item()))
             return st
@@ -1111,7 +1312,45 @@ class AdvanceTally:
         self.dk._run = self.orig
 
 
-def b1_check(rec_args, chunk, reps=3, max_chunks=None):
+def capped_rays(args, kw, k, st, lo, cap):
+    """The rays of one twin chunk (``st``: the final state of its
+    primaries' march, rays ``lo:`` of the dispatch) whose advances reached
+    ``cap``: index, grid-space origin and direction, ``tmin``, ``tmax`` and
+    the ``alive`` byte as the dispatch was given them, the kernel's
+    ``distance``, and the twin's final state (advances, ``t``, cell,
+    hit, exhausted, active). A dict of numpy arrays, one row a ray."""
+    import torch
+
+    from voxelrt_torch.ops import dda_kernel as dk
+
+    sel = torch.nonzero(st["adv"] >= cap).squeeze(1)
+    idx = sel + lo
+    origin, direction, tmin, tmax = args[1:5]
+    n = origin.x.shape[0]
+    tmax = (tmax if isinstance(tmax, torch.Tensor)
+            else torch.full((n,), float(tmax), device=origin.x.device))
+    alive = kw.get("alive")
+    px, py, pz = dk._unpack_word(st["word"][sel])[:3]
+
+    def np_(x):
+        return x.cpu().numpy()
+
+    return dict(
+        index=np_(idx), origin=np_(torch.stack(list(origin), -1)[idx]),
+        direction=np_(torch.stack(list(direction), -1)[idx]),
+        tmin=np.full(idx.numel(), float(tmin), np.float32),
+        tmax=np_(tmax[idx]),
+        alive=(np_(alive[idx] != 0).astype(np.uint8) if alive is not None
+               else np.ones(idx.numel(), np.uint8)),
+        kernel_distance=np_(k.distance[idx]), twin_advances=np_(st["adv"][sel]),
+        twin_t=np_(st["t"][sel]),
+        twin_cell=np_(torch.stack([px, py, pz], -1)).astype(np.int32),
+        twin_hit=np_(st["hit"][sel]), twin_exhausted=np_(st["exh"][sel]),
+        twin_active=np_(st["active"][sel]))
+
+
+def b1_check(rec_args, chunk, reps=3, max_chunks=None, capture=False,
+             tail=False):
     """B1 kernel vs twin on one recorded dispatch (closest hit, with or
     without in-kernel NEE, or shadow mode), all outputs bit-equal.
 
@@ -1121,12 +1360,16 @@ def b1_check(rec_args, chunk, reps=3, max_chunks=None):
     early-out off (``sun_mode='off'``, or ``use_sun_open=False`` in shadow
     mode), which must change no output. The twin runs in runs of ``chunk``
     rays (one sample's wavefront each), which bounds its temporaries, over
-    the first ``max_chunks`` of them (None: all); on each the kernel runs
-    again on that chunk alone (another list order, the same outputs and
-    counts), and on the first the twin runs with the early-out off too.
+    the first ``max_chunks`` of them (None: all), or with ``tail`` the last
+    ones, which hold the dispatch's highest lane indices; on each the
+    kernel runs again on that chunk alone (another list order, the same
+    outputs and counts), and on the first the twin runs with the early-out
+    off too.
     ``ms_with_wrapper`` is the CUDA-event time of the whole wrapper,
     ``device_ms`` the card's time for the dispatch's three passes,
-    ``sun_off_ms`` the event time with the early-out off. ``plain_ms`` is
+    ``sun_off_ms`` the event time with the early-out off. With
+    ``capture``, ``capped`` holds the compared rays whose advances reached
+    the dispatch's cap (``capped_rays``). ``plain_ms`` is
     the twin's time scaled to the whole dispatch. The bound
     counts the primaries' advances (the kernel's own ``iters`` in
     closest-hit mode, the twin's on the compared chunks scaled to the
@@ -1154,12 +1397,15 @@ def b1_check(rec_args, chunk, reps=3, max_chunks=None):
     mask_alive = int((kw["alive"] != 0).sum().item())
     off_bad = int(_b1_differs(k_off, k).sum().item())
     n_cmp = n if max_chunks is None else min(n, chunk * max_chunks)
+    lo0 = n - n_cmp if tail else 0
     tot = dict(mism=0, chunk_bad=0, twin_off_bad=0, prim_adv=0, nee_adv=0,
                most_adv=0)
+    cap = args[5] if len(args) > 5 else kw.get("max_advances", 512)
+    capped = []
     max_err = 0.0
     plain_ms = 0.0
-    for lo in range(0, n_cmp, chunk):
-        hi = min(n_cmp, lo + chunk)
+    for lo in range(lo0, lo0 + n_cmp, chunk):
+        hi = min(lo0 + n_cmp, lo + chunk)
         sa = [_ray_slice(a, n, lo, hi) for a in rest]
         skw = {name: _ray_slice(v, n, lo, hi) for name, v in kw.items()}
         with AdvanceTally() as adv:
@@ -1173,6 +1419,9 @@ def b1_check(rec_args, chunk, reps=3, max_chunks=None):
         tot["prim_adv"] += adv.sums[0]
         tot["nee_adv"] += sum(adv.sums[1:])
         tot["most_adv"] = max(tot["most_adv"], adv.most)
+        if capture:
+            capped.append(capped_rays(args, kw, k, adv.states[0], lo, cap))
+        del adv
         tot["mism"] += int(_b1_differs(k, p, lo).sum().item())
         kd = k.distance[lo:hi]
         both = torch.isfinite(kd) & torch.isfinite(p.distance)
@@ -1181,7 +1430,7 @@ def b1_check(rec_args, chunk, reps=3, max_chunks=None):
         kc = dk.raytrace(tables, *sa, **skw)
         tot["chunk_bad"] += int(_b1_differs(kc, p).sum().item()) + int(
             not torch.equal(kc.counts, p.counts))
-        if lo == 0:
+        if lo == lo0:
             po = dk.raytrace_plain(
                 tables, *sa, **{name: _ray_slice(v, n, lo, hi)
                                 for name, v in sun_off.items()})
@@ -1191,7 +1440,7 @@ def b1_check(rec_args, chunk, reps=3, max_chunks=None):
     prim_adv = (tot["prim_adv"] * scale if shadow
                 else int(k.iters.to(torch.int64).sum().item()))
     nee_adv = tot["nee_adv"] * scale
-    out = dict(n=n, compared=n_cmp, alive=counts[0],
+    out = dict(n=n, compared=n_cmp, compared_from=lo0, alive=counts[0],
                nee_marched=counts[1], nee_settled=counts[2],
                mismatched=tot["mism"], mismatch_frac=tot["mism"] / n_cmp,
                chunk_mismatched=tot["chunk_bad"],
@@ -1199,7 +1448,10 @@ def b1_check(rec_args, chunk, reps=3, max_chunks=None):
                max_abs_err=max_err,
                hits=int(torch.isfinite(k.distance).sum().item()),
                primary_advances=prim_adv, nee_advances=nee_adv,
-               most_advances_of_a_ray=tot["most_adv"])
+               most_advances_of_a_ray=tot["most_adv"], advance_cap=cap)
+    if capture:
+        out["capped"] = {f: np.concatenate([c[f] for c in capped])
+                         for f in capped[0]}
     out["ok"] = (tot["mism"] == 0 and tot["chunk_bad"] == 0
                  and out["sun_off_mismatched"] == 0 and counts[0] == mask_alive)
     out["ms_with_wrapper"] = cuda_ms(lambda: dk.raytrace(*args, **kw), reps)
@@ -1431,6 +1683,42 @@ def viewer_visit(scene, max_frames, csv_path):
                 render_moving_ms=mv[len(mv) // 2] if mv else None,
                 render_still_ms=st[len(st) // 2] if st else None,
                 last_stat=stat)
+
+
+def drive_camera_path(scene, tag, on_frame=None):
+    """Phase 9's camera path (``N_MOVING`` frames of ``MOVE``, then
+    ``N_STILL`` of ``HOLD``) through ``Scene.run_frames``, the launch
+    counters and the peak memory set to 0 just before it and read just
+    after; fails unless the rows' moving flags follow the path. Returns
+    (the last image, the figures: seconds with set-up, launches, peak GB,
+    each frame's wall ms and the median moving and still frame ms, the
+    first two of each left out)."""
+    import torch
+
+    from voxelrt_torch.ops import _cuda
+    from voxelrt_torch.utils.profiling import FrameStats
+
+    with open(os.devnull, "w") as null:
+        stats = FrameStats(out=null)
+        _cuda.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        img = scene.run_frames([dict(MOVE) for _ in range(N_MOVING)]
+                               + [dict(HOLD) for _ in range(N_STILL)],
+                               stats=stats, on_frame=on_frame)
+        torch.cuda.synchronize()
+        path_s = time.perf_counter() - t0
+        launches = dict(_cuda.LAUNCHES)
+    flags = [row["moving"] for row in stats.rows]
+    if flags != [True] * N_MOVING + [False] * N_STILL:
+        fail(f"{tag}: wrong moving flags {flags}")
+    walls = [row["wall_ms"] for row in stats.rows]
+    mv_ms = sorted(walls[2:N_MOVING])
+    st_ms = sorted(walls[N_MOVING + 2:])
+    return img, dict(path_s=path_s, launches=launches,
+                     peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                     walls=walls, moving_frame_ms=mv_ms[len(mv_ms) // 2],
+                     still_frame_ms=st_ms[len(st_ms) // 2])
 
 
 def run_path(scene, frames):
@@ -1977,7 +2265,9 @@ def phase_trace_bench(smi):
 def phase_multichip_report(card, smi):
     """Phase 28: ``tools/multichip_report_torch.py``'s report: example6's
     still step (two 16-sample launches) at 1280x720 partitioned at dp=8
-    (160-row blocks) and dp=32 (40-row blocks, off the tile columns), on
+    (160-row blocks) and dp=32 (40-row blocks, off the tile columns), and
+    at dp=4 × sp=2 (320-row blocks, each block's samples over two devices
+    and the trace gathered), on
     ``card`` dp times or, on a host with several cards, on every card;
     every field equal to one device's after each launch, with the halo
     rows and bytes, each device's device ms and peak memory and the launch's
@@ -1991,6 +2281,16 @@ def phase_multichip_report(card, smi):
                      MAIN_SPL, smi=smi,
                      out=lambda ln: print(f"multichip report: {ln}",
                                           flush=True))
+    # the 'sp' axis: dp=4 blocks, each block's samples over 2 devices
+    sp = mrt.report(r.cfg, r.scene_data, r._params(1e9), card, [4],
+                    MAIN_SPL, sp=2, smi=smi,
+                    out=lambda ln: print(f"multichip report: {ln}",
+                                         flush=True))
+    rep["meshes"]["dp=4 sp=2"] = row = sp["meshes"]["dp=4"]
+    rep["ok"] = rep["ok"] and sp["ok"]
+    if len(row["devices"]) != 8 or not row["trace_gather_bytes"] > 0:
+        fail(f"multichip report (dp=4 sp=2): {len(row['devices'])} devices, "
+             f"{row['trace_gather_bytes']} B of trace gathered")
     w = r.cfg.image_res[0]
     for name, row in rep["meshes"].items():
         if not row["equal"]:
@@ -2143,6 +2443,188 @@ def phase_restir_example2_golden(smi):
     return held_to_golden("33", img, EXAMPLE2_RESTIR_GOLDEN, launches,
                           ("traverse",), smi, spp=RESTIR_GOLDEN_SPP,
                           finish_s=finish_s)
+
+
+def phase_ref_res(smi):
+    """Phase 34: example6 at the reference's own resolution, ``REF_RES``.
+    The still: one launch of ``FULLRES_SPL`` samples through
+    ``Scene.finish`` from a fresh ``Scene``, held to ``REF_GOLDEN`` at RMSE
+    ``FULLRES_BAR``, then two more launches for the steady ``per_spp_ms``.
+    The camera path: phase 9's frames through ``Scene.run_frames`` from a
+    fresh ``Scene`` at its default config, frames 24 and 30 held to
+    ``REF_PATH_GOLDENS``. The moving frames' 960x540 active grid does not
+    tile (540 % 8 = 4), so their lanes must take the column-order route
+    (``pipeline.block_tiled`` False) and the still frames the tiled one.
+    Each part's launches are counted from 0 around it; peak memory and
+    times beside them. Then, on the calls of one more still launch, B1's
+    four dispatches (33.2M lanes each; the twin on the last sample's
+    chunk, the highest lane indices), B2 and B3, and on the last moving
+    frame's two calls B4 (518,400 texels, just under its MAX_TEXELS), each
+    held bit-equal to its twin."""
+    import torch
+
+    from voxelrt_torch.ops import _cuda
+    from voxelrt_torch.render import pipeline, temporal
+
+    w, h = REF_RES
+    need = ("traverse", "point_fetch", "bilinear_fetch_dirs")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as cache:
+        scene = build_example("example6", None, sky_cache_dir=cache,
+                              image_res=REF_RES,
+                              samples_per_launch=FULLRES_SPL)
+        r = scene.renderer
+        _cuda.reset_launch_counts()
+        with render_timer(r) as timing:
+            t0 = time.perf_counter()
+            img = scene.finish(spp=FULLRES_SPL, save=False)
+            torch.cuda.synchronize()
+            finish_s = time.perf_counter() - t0
+        launches = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+        if os.listdir(cache):
+            fail("phase 34: the sky was recomputed, not loaded from "
+                 "data/skycache/")
+    first_ms = timing["render_s"] / FULLRES_SPL * 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r.render(spp=2 * FULLRES_SPL)
+    torch.cuda.synchronize()
+    steady_ms = (time.perf_counter() - t0) / (2 * FULLRES_SPL) * 1e3
+    still_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    kernels = ref_res_still_checks(r, w * h)
+    del r, scene
+    torch.cuda.empty_cache()
+    still = held_to_golden("34_still", img, REF_GOLDEN, launches, need, smi,
+                           spp=FULLRES_SPL, finish_s=finish_s,
+                           first_per_spp_ms=first_ms,
+                           steady_per_spp_ms=steady_ms,
+                           peak_gb=still_peak_gb)
+    del img
+
+    # the camera path: which route each frame's lanes took
+    routes = collections.Counter()
+    tiled_of = pipeline.block_tiled
+
+    def watched(aw, ah, ra):
+        out = tiled_of(aw, ah, ra)
+        routes[(aw, ah, ra, out)] += 1
+        return out
+
+    frames = {}
+
+    def keep_frame(i, frame):
+        if i + 1 in REF_PATH_GOLDENS:
+            frames[i + 1] = np.array(frame)
+
+    mscene = build_example("example6", None, image_res=REF_RES)
+    pipeline.block_tiled = watched
+    rec_b4 = Recorder(temporal, "temporal_taps", keep=2)
+    try:
+        _, fig = drive_camera_path(mscene, "phase 34", keep_frame)
+    finally:
+        pipeline.block_tiled = tiled_of
+        rec_b4.restore()
+    mlaunches = {k: v for k, v in fig["launches"].items() if v}
+    if len(rec_b4.calls) != 2:
+        fail("phase 34: B4's calls were not recorded")
+    kernels["b4"] = {}
+    for (cargs, ckw), tag in zip(rec_b4.calls, ("diffuse", "specular")):
+        c = kernels["b4"][tag] = b4_check(cargs, ckw)
+        print(f"B4 at {w}x{h}, the last moving frame's {tag} pass: "
+              f"{json.dumps(c)}", flush=True)
+        if not c["ok"] or (c["m"], c["n"]) != (w * h, w * h // 4):
+            fail(f"phase 34: B4 ({tag}) is not bit-equal to its twin at "
+                 f"{w * h} lanes of {w * h // 4} texels")
+    del rec_b4, cargs, ckw, mscene
+    torch.cuda.empty_cache()
+    aw, ah = w // 2, h // 2
+    untiled = routes.get((aw, ah, aw, False), 0)
+    tiled = routes.get((w, h, w, True), 0)
+    if untiled < N_MOVING or tiled < N_STILL or set(routes) != {
+            (aw, ah, aw, False), (w, h, w, True)}:
+        fail(f"phase 34: the frames' lane orders {dict(routes)}: the "
+             f"{aw}x{ah} moving frames must take the column-order route, "
+             f"the {w}x{h} still ones the tiled one")
+    if mlaunches.get("temporal_taps") != 2 * N_MOVING:
+        fail(f"phase 34: {mlaunches.get('temporal_taps')} B4 launches over "
+             f"the camera path, expected {2 * N_MOVING}")
+    path = {n: held_to_golden(
+        f"34_f{n}", frames[n], REF_PATH_GOLDENS[n], mlaunches,
+        need + ("temporal_taps",), smi, frame=n, moving=n <= N_MOVING)
+        for n in sorted(REF_PATH_GOLDENS)}
+    return dict(res=list(REF_RES), still=still, path=path,
+                path_s=fig["path_s"], moving_frame_ms=fig["moving_frame_ms"],
+                still_frame_ms=fig["still_frame_ms"],
+                frame_wall_ms=fig["walls"], path_peak_gb=fig["peak_gb"],
+                path_launches=mlaunches, kernels=kernels,
+                lane_routes={f"{a}x{b} rows {c} tiled={t}": v
+                             for (a, b, c, t), v in routes.items()},
+                device=smi)
+
+
+def ref_res_still_checks(r, pixels):
+    """Phase 34's kernel checks on one more still launch of renderer
+    ``r`` (``pixels`` a sample): B1's four dispatches, the twin on the last
+    sample's chunk, B2's escape fetch and B3's last call, each bit-equal to
+    its twin. Returns their figures."""
+    from voxelrt_torch.render import pathtracer as pt
+    from voxelrt_torch.sky import atmos
+
+    recs = (Recorder(pt, "raytrace", keep=4),
+            Recorder(atmos, "point_fetch_words", keep=1),
+            Recorder(atmos, "bilinear_fetch_dirs", keep=1))
+    try:
+        r.render(spp=FULLRES_SPL)
+    finally:
+        for rec in recs:
+            rec.restore()
+    rec_b1, rec_b2, rec_b3 = recs
+    lanes = FULLRES_SPL * pixels
+    if len(rec_b1.calls) != 4 or any(
+            c[0][1].x.shape[0] != lanes for c in rec_b1.calls):
+        fail(f"phase 34: B1's four dispatches of {lanes} rays were not "
+             "recorded")
+    out = dict(b1=[])
+    for depth, call in enumerate(rec_b1.calls):
+        c = b1_check(call, chunk=pixels, max_chunks=1, tail=True)
+        out["b1"].append(c)
+        print(f"B1 at the reference resolution, depth {depth}, the twin on "
+              f"rays {c['compared_from']}-{c['n'] - 1}: {json.dumps(c)}",
+              flush=True)
+        if not c["ok"]:
+            fail(f"phase 34: B1 at depth {depth} disagrees with its twin")
+    out["b2"] = b2_check(*rec_b2.calls[-1][0])
+    print(f"B2 at the reference resolution: {json.dumps(out['b2'])}",
+          flush=True)
+    if not out["b2"]["ok"] or out["b2"]["n"] != lanes:
+        fail(f"phase 34: B2 is not bit-equal to its twin at {lanes} lanes")
+    out["b3"] = b3_check("bilinear_fetch_dirs", *rec_b3.calls[-1])
+    print(f"B3 at the reference resolution: {json.dumps(out['b3'])}",
+          flush=True)
+    if not out["b3"]["ok"]:
+        fail("phase 34: B3 is not bit-equal to its twin")
+    return out
+
+
+def report_ref_res(out):
+    """Prints phase 34's rows; fails above the bar."""
+    st = out["still"]
+    print(f"reference resolution (34): example6 at {out['res'][0]}x"
+          f"{out['res'][1]}: per_spp_ms {st['first_per_spp_ms']:.3f} in the "
+          f"first {FULLRES_SPL}-sample launch, {st['steady_per_spp_ms']:.3f} "
+          f"steady over two more, peak {st['peak_gb']:.2f} GB; camera path "
+          f"{out['path_s']:.2f} s, moving_frame_ms "
+          f"{out['moving_frame_ms']:.3f} (960x540 active), still_frame_ms "
+          f"{out['still_frame_ms']:.3f}, peak {out['path_peak_gb']:.2f} GB, "
+          f"lane orders {json.dumps(out['lane_routes'])}, on "
+          f"{out['device']}", flush=True)
+    report_golden("34", f"example6, {FULLRES_SPL} spp in one launch, "
+                  f"Scene.finish {st['finish_s']:.2f} s", st)
+    for n, row in out["path"].items():
+        report_golden("34", f"example6's camera path, frame {n} "
+                      f"({'moving, untiled' if row['moving'] else 'still'})",
+                      row)
 
 
 def sky_layers(cfg, args, golden_trans, device):
@@ -2324,16 +2806,7 @@ def report_sky_golden(out):
                   f"{FULLRES_SPL} spp in one launch, Scene.finish with the "
                   f"sky {out['render']['finish_s']:.2f} s", out["render"],
                   against="the same lit by the JAX package's sky")
-    if a["share"] < SKY_SHARE_BAR:
-        fail(f"phase 32: {a['share']} of the sky's texels within tolerance, "
-             f"under {SKY_SHARE_BAR}")
-    for m, bar in SKY_REL_RMSE_BARS.items():
-        if not a[f"rel_rmse_{m}"] < bar:
-            fail(f"phase 32: the sky's {m} relative RMSE "
-                 f"{a[f'rel_rmse_{m}']} is not under {bar}")
-    if not (a["ambient_ok"] and a["lut_ok"]):
-        fail("phase 32: the cloud ambient or the transmittance LUT is off "
-             "the JAX package's")
+    check_sky_bars("32", a)
 
 
 def main():
@@ -2376,26 +2849,14 @@ def main():
     rec_pt = Recorder(atmos, "point_fetch_words", keep=1)
     rec_bl = Recorder(atmos, "bilinear_fetch_dirs", keep=1)
     rec_b1 = Recorder(pt, "raytrace", keep=4)
-    timing = {}
-    orig_render = type(r).render
-
-    def timed_render(self, *a, **k):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        img = orig_render(self, *a, **k)
-        torch.cuda.synchronize()
-        timing["render_s"] = time.perf_counter() - t
-        return img
-
-    type(r).render = timed_render
     _cuda.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    img = scene.finish(spp=MAIN_SPP, save=False)
-    torch.cuda.synchronize()
-    finish_s = time.perf_counter() - t0
+    with render_timer(r) as timing:
+        t0 = time.perf_counter()
+        img = scene.finish(spp=MAIN_SPP, save=False)
+        torch.cuda.synchronize()
+        finish_s = time.perf_counter() - t0
     launches = dict(_cuda.LAUNCHES)
-    type(r).render = orig_render
     rec_pt.restore()
     rec_bl.restore()
     rec_b1.restore()
@@ -2521,7 +2982,6 @@ def main():
     # launch), the camera path of tools/camera_path_bench.py: 24 moving
     # frames (640x360 active, B4 twice a frame), then 6 still ones.
     from voxelrt_torch.render import temporal
-    from voxelrt_torch.utils.profiling import FrameStats
 
     mscene = build_example("example6", None)
     mr = mscene.renderer
@@ -2538,26 +2998,15 @@ def main():
         if i + 1 in PATH_GOLDENS:
             path_frames[i + 1] = np.array(frame)
 
-    with open(os.devnull, "w") as null:
-        mstats = FrameStats(out=null)
-        _cuda.reset_launch_counts()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        mimg = mscene.run_frames(
-            [dict(MOVE) for _ in range(N_MOVING)]
-            + [dict(HOLD) for _ in range(N_STILL)], stats=mstats,
-            on_frame=keep_frame)
-        torch.cuda.synchronize()
-        path_s = time.perf_counter() - t0
-        mlaunches = dict(_cuda.LAUNCHES)
-    rec_b4.restore()
-    mpeak_gb = torch.cuda.max_memory_allocated() / 1e9
-    flags = [row["moving"] for row in mstats.rows]
-    walls = [row["wall_ms"] for row in mstats.rows]
-    mv_ms = sorted(walls[2:N_MOVING])
-    st_ms = sorted(walls[N_MOVING + 2:])
-    moving_frame_ms = mv_ms[len(mv_ms) // 2]
-    still_frame_ms = st_ms[len(st_ms) // 2]
+    try:
+        mimg, mfig = drive_camera_path(mscene, "moving path", keep_frame)
+    finally:
+        rec_b4.restore()
+    path_s, mlaunches, mpeak_gb = (mfig[k] for k in ("path_s", "launches",
+                                                     "peak_gb"))
+    walls = mfig["walls"]
+    moving_frame_ms = mfig["moving_frame_ms"]
+    still_frame_ms = mfig["still_frame_ms"]
     print(f"moving path: Scene.run_frames, {N_MOVING} moving + {N_STILL} "
           f"still frames at {w}x{h} (moving: 640x360 active), "
           f"samples_per_launch={mr.cfg.samples_per_launch}, "
@@ -2569,8 +3018,6 @@ def main():
         fail("moving path: image is not finite or has the wrong shape")
     if float(mimg.std()) <= 1e-4:
         fail("moving path: image is constant")
-    if flags != [True] * N_MOVING + [False] * N_STILL:
-        fail(f"moving path: wrong moving flags {flags}")
     if mlaunches["temporal_taps"] != 2 * N_MOVING:
         fail(f"moving path: {mlaunches['temporal_taps']} B4 launches, "
              f"expected {2 * N_MOVING}")
@@ -2756,16 +3203,24 @@ def main():
     report_golden("33", f"example2 with ReSTIR-PT, {RESTIR_GOLDEN_SPP} spp, "
                   f"Scene.finish {restir2_golden['finish_s']:.2f} s",
                   restir2_golden)
-    print(f"phases 22-33, seconds each: "
-          f"{json.dumps({k: phase_s[k] for k in map(str, range(22, 34))})}"
-          f", launches: {json.dumps(phase_launches)}", flush=True)
 
-    # -- 16. a full-size sky on the card ---------------------------------------
+    # -- 34. example6 at the reference's 1920x1080 against the JAX package's
+    # (its launches: the still launch's and the camera path's, each counted
+    # from 0 around it)
+    ref_res = timed("34", phase_ref_res, smi)
+    phase_launches["34"] = dict(collections.Counter(
+        ref_res["still"]["launches"]) + collections.Counter(
+        ref_res["path_launches"]))
+    report_ref_res(ref_res)
+
+    # -- 16. example7's sky on the card, against the JAX package's ------------
     with tempfile.TemporaryDirectory() as sky_cache:
-        sky = phase_sky(sky_cache)
-    print(f"sky precompute: example7's sky at the default knobs "
-          f"({sky['skybox_res']}^2 texels) on the card: {json.dumps(sky)}",
-          flush=True)
+        sky = counted("16", phase_sky, sky_cache)
+    report_sky(sky)
+
+    print(f"phases 22-34 and 16, seconds each: "
+          f"{json.dumps({k: phase_s[k] for k in [*map(str, range(22, 35)), '16']})}"
+          f", launches: {json.dumps(phase_launches)}", flush=True)
 
     # -- 17. every example against the JAX package's golden ------------------
     examples = timed("17", phase_examples, smi)
@@ -2781,10 +3236,15 @@ def main():
     if "jax" in sys.modules or "voxelrt" in sys.modules:
         fail("the port imported jax or the voxelrt package")
 
+    rk = ref_res["kernels"]
     b1_all = b1 + shadow["b1_closest"] + shadow["b1_shadow"] + [
-        restir["b1"]] + [v["b1_depth1"] for v in routes["routes"].values()]
+        restir["b1"]] + [v["b1_depth1"] for v in routes["routes"].values()
+                         ] + rk["b1"]
     b3_all = list(b3.values()) + shadow["b3"] + [restir["b3"]] + [
-        v["b3"] for v in routes["routes"].values()]
+        v["b3"] for v in routes["routes"].values()] + [rk["b3"]]
+    b4_all = list(b4.values()) + list(rk["b4"].values())
+    check_keys = ("n", "device_ms", "ms_with_wrapper", "plain_ms",
+                  "bound_ms", "bound_by")
     kernels = [
         dict(name="B1 traverse", route="cuda", source="voxelrt_torch/csrc/dda.cu",
              replaces="voxelrt/ops/dda_pallas.py:194",
@@ -2842,7 +3302,8 @@ def main():
              restir_shadow_launches=restir["launches"]["traverse_shadow"],
              restir_revalidation={k: restir["b1"][k] for k in (
                  "n", "alive", "mismatched", "device_ms", "ms_with_wrapper",
-                 "plain_ms", "bound_ms", "bound_by")},
+                 "plain_ms", "bound_ms", "bound_by", "most_advances_of_a_ray",
+                 "advance_cap")},
              route_launches={k: v["launches"]["traverse"]
                              for k, v in routes["routes"].items()},
              route_depth1={k: {f: v["b1_depth1"][f] for f in (
@@ -2851,6 +3312,9 @@ def main():
                  for k, v in routes["routes"].items()},
              sorted_unsorted_back_mismatched=routes["routes"]["sort_rays"][
                  "unsorted_back_mismatched"],
+             ref_res_depths=[{f: c[f] for f in check_keys + (
+                 "compared_from", "compared", "alive", "mismatched",
+                 "most_advances_of_a_ray")} for c in rk["b1"]],
              trace_bench={k: {f: v[f] for f in (
                  "n", "hits", "mode", "device_ms", "mrays_per_s", "bound_ms",
                  "bound_by", "bound_share", "advances", "twin_rays",
@@ -2863,13 +3327,16 @@ def main():
              source="voxelrt_torch/csrc/texfetch.cu",
              replaces="voxelrt/ops/texfetch.py:156",
              launches=launches["point_fetch"],
-             max_abs_err=float(b2["unequal"] + restir["b2"]["unequal"]),
+             max_abs_err=float(b2["unequal"] + restir["b2"]["unequal"]
+                               + rk["b2"]["unequal"]),
              ms=b2["device_ms"], ms_with_wrapper=b2["ms_with_wrapper"],
              plain_ms=b2["plain_ms"], bound_ms=b2["bound_ms"],
              bound_by="bytes", library_ms=b2["library_ms"],
              shape=f"{b2['n']} indices",
              restir_launches=restir["launches"]["point_fetch"],
              restir_inline_fetch=restir["b2"],
+             ref_res_fetch={f: rk["b2"][f] for f in check_keys[:-1] + (
+                 "unequal", "library_ms")},
              route_launches={k: v["launches"]["point_fetch"]
                              for k, v in routes["routes"].items()}),
         dict(name="B3 bilinear_fetch_dirs", route="cuda",
@@ -2902,7 +3369,9 @@ def main():
                  "n", "texels", "unequal", "device_ms", "ms_with_wrapper",
                  "plain_ms", "bound_ms", "bound_by")},
              route_launches={k: v["launches"]["bilinear_fetch_dirs"]
-                             for k, v in routes["routes"].items()}),
+                             for k, v in routes["routes"].items()},
+             ref_res_call={f: rk["b3"][f] for f in check_keys + (
+                 "unequal",)}),
         dict(name="B3 bilinear_fetch_dirs2", route="cuda",
              source="voxelrt_torch/csrc/texfetch.cu",
              replaces="voxelrt/ops/texfetch.py:59",
@@ -2923,8 +3392,8 @@ def main():
              source="voxelrt_torch/csrc/resample.cu",
              replaces="voxelrt/ops/resample.py:128",
              launches=mlaunches["temporal_taps"],
-             max_abs_err=max(c["max_abs_err"] for c in b4.values()),
-             unequal_lanes=sum(c["unequal_lanes"] for c in b4.values()),
+             max_abs_err=max(c["max_abs_err"] for c in b4_all),
+             unequal_lanes=sum(c["unequal_lanes"] for c in b4_all),
              ms=b4["diffuse_catmullrom"]["device_ms"],
              ms_with_wrapper=b4["diffuse_catmullrom"]["ms_with_wrapper"],
              plain_ms=b4["diffuse_catmullrom"]["plain_ms"],
@@ -2939,7 +3408,9 @@ def main():
                                       for k, c in b4.items()},
              variant_plain_ms={k: c["plain_ms"] for k, c in b4.items()},
              variant_bound_ms={k: c["bound_ms"] for k, c in b4.items()},
-             path_routes=b4_path_routes),
+             path_routes=b4_path_routes,
+             ref_res_variants={k: {f: c[f] for f in check_keys + (
+                 "m", "unequal_lanes")} for k, c in rk["b4"].items()}),
         dict(name="P probe", route="cuda",
              source="voxelrt_torch/csrc/probe.cu",
              replaces="tools/pallas_probe.py:30",
@@ -2971,7 +3442,7 @@ def main():
              variant_loop_ns_per_iter={
                  k: f["loop_ns_per_iter"] for k, f in probe["table"].items()}),
     ]
-    # each kernel's launches in phases 17 and 22-33, by its counter
+    # each kernel's launches in phases 16, 17 and 22-34, by its counter
     counter = {"B1 traverse": "traverse", "B2 point_fetch_words": "point_fetch",
                "B3 bilinear_fetch_dirs": "bilinear_fetch_dirs",
                "B3 bilinear_fetch_dirs2": "bilinear_fetch_dirs2",
@@ -3002,7 +3473,8 @@ def main():
                        trace_bench=trace_bench, multichip_report=multichip,
                        fullres_golden=fullres, path_golden=path_golden,
                        restir_golden=restir_golden, sky_golden=sky_golden,
-                       restir_example2_golden=restir2_golden),
+                       restir_example2_golden=restir2_golden,
+                       ref_res=ref_res),
                   fh, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)

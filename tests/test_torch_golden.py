@@ -66,6 +66,19 @@ with the JAX package's functions that make them.
 
       python tests/test_torch_golden.py --regen sky
 
+* ``example6_1920x1080_16spp.png`` and ``example6_path_1080p_f24.png`` /
+  ``_f30.png`` are the still golden and the camera path's at the
+  reference's own resolution (``REF_RES``), on the same routes and seed;
+  ``example7_sky_128.npz`` is example7's low-sun sky made as example6's
+  128² sky is. ``chip_smoke.py`` phases 34 and 16 hold the card to them;
+  tests/test_torch_golden_refres.py reads them. Remake them (796 s and
+  25.4 GiB, 2,887 s and 7.3 GiB, and 1,493 s and 7.9 GiB of host memory,
+  side by side on an 8-core x86 host) with:
+
+      python tests/test_torch_golden.py --regen still --res 1920x1080
+      python tests/test_torch_golden.py --regen path --res 1920x1080
+      python tests/test_torch_golden.py --regen sky example7
+
 * ``<name>_1280x720_16spp.png`` for the ten other examples (``EXAMPLES``)
   and ``example2_restir_1280x720_4spp.png``, with ``example7_sky_tiny.npz``
   and ``example10_sky_tiny.npz``, are made by ``render_example_jax`` on
@@ -109,8 +122,12 @@ MOVE = {"orbit": (0.01, 0.002), "move_keys": ["w"], "dt": 0.02}
 HOLD = {"dt": 0.02}
 PATH_FRAMES = [MOVE] * 24 + [HOLD] * 6
 PATH_KEEP = (24, 30)  # the last moving frame and the last still one
+PATH_RECORD = dict(moving=24, move=MOVE, still=6, hold=HOLD)
 PATH_GOLDENS = {n: os.path.join(GOLDEN_DIR, "torch_fullres",
                                 f"example6_path_f{n}.png") for n in PATH_KEEP}
+# The reference's own resolution (scene.py's default image_res): the still
+# and the camera path again, on the same routes and seed as at 1280×720.
+REF_RES = (1920, 1080)
 RESTIR_SPP = 4
 RESTIR_GOLDEN = os.path.join(GOLDEN_DIR, "torch_fullres",
                              "example6_restir_1280x720_4spp.png")
@@ -162,6 +179,23 @@ def _build_scenes():
         s.set_voxel((-4, k + 1, -3), 2 if k == 5 else 11, (1.0, 0.9, 0.6))
     scenes["lit_blocks"] = s
     return scenes
+
+
+def still_golden(res=FULLRES_RES):
+    """The full-width still golden of example6 at ``res``."""
+    if tuple(res) == FULLRES_RES:
+        return FULLRES
+    w, h = res
+    return os.path.join(GOLDEN_DIR, "torch_fullres",
+                        f"example6_{w}x{h}_{FULLRES_SPL}spp.png")
+
+
+def path_golden(n, res=FULLRES_RES):
+    """The golden of frame ``n`` of example6's camera path at ``res``."""
+    if tuple(res) == FULLRES_RES:
+        return PATH_GOLDENS[n]
+    return os.path.join(GOLDEN_DIR, "torch_fullres",
+                        f"example6_path_{res[1]}p_f{n}.png")
 
 
 def _rmse(a, b):
@@ -479,17 +513,22 @@ def test_example6_gap_is_the_bf16_sky_maps(monkeypatch):
     assert rmse["f32"] >= 5 * rmse["bf16"]
 
 
-def regen_sky(sizes=SKY_RES):
-    """Make the sky goldens of ``skybox_res`` in ``sizes``, one after the
-    other, and write each with its record as soon as it is made."""
+def sky_golden(res, name="example6"):
+    """The sky golden of example ``name`` at ``skybox_res`` ``res``."""
+    return os.path.join(GOLDEN_DIR, "torch_fullres", f"{name}_sky_{res}.npz")
+
+
+def regen_sky(sizes=SKY_RES, name="example6"):
+    """Make the sky goldens of example ``name`` at the ``skybox_res`` in
+    ``sizes``, every other knob at its default, one after the other, and
+    write each with its record as soon as it is made."""
     import resource
 
     for res in sizes:
-        data, record = make_sky_golden_jax(res)
+        data, record = make_sky_golden_jax(res, name)
         record["peak_host_gib"] = (
             resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20)
-        path = SKY_GOLDENS.get(res) or os.path.join(
-            GOLDEN_DIR, "torch_fullres", f"example6_sky_{res}.npz")
+        path = sky_golden(res, name)
         with open(path, "wb") as fh:
             fh.write(data)
         with open(path[:-len(".npz")] + ".json", "w") as fh:
@@ -724,27 +763,39 @@ def example_gap(name, route="default", bar=1e-4):
                 largest=float(diff.max()), two_axis=two_axis, pixels=pixels)
 
 
-def regen(name, frames=None, out_dir=None):
+def regen(name, frames=None, out_dir=None, res=FULLRES_RES):
     """Render the golden ``name`` ('still', 'path' or 'restir') with the JAX
-    package on the CPU and write it; print its seconds and the process's
-    peak host memory. For 'path', ``frames`` (counted from 1) and
-    ``out_dir`` keep other frames of the path, written as
+    package on the CPU at ``res`` and write it; print its seconds and the
+    process's peak host memory. At a ``res`` other than 1280×720, a
+    ``.json`` beside each image records the route, the resolution, the
+    seconds and the peak host memory. For 'path', ``frames`` (counted from
+    1) and ``out_dir`` keep other frames of the path, written as
     ``out_dir/fNN.png`` in place of the goldens."""
     import resource
     import time
 
     from voxelrt.utils.image import write_png
 
+    res = tuple(res)
     t0 = time.perf_counter()
     if name == "still":
-        out = {FULLRES: render_example6_jax(FULLRES_RES)}
+        out = {still_golden(res): render_example6_jax(res)}
+        record = dict(example="example6", spp=FULLRES_SPL,
+                      config=dict(samples_per_launch=FULLRES_SPL),
+                      route=JAX_CPU_ROUTE)
     elif name == "path":
-        imgs = render_example6_path_jax(FULLRES_RES,
-                                        keep=frames or PATH_KEEP)
+        imgs = render_example6_path_jax(res, keep=frames or PATH_KEEP)
         out = {(os.path.join(out_dir, f"f{n:02d}.png") if out_dir
-                else PATH_GOLDENS[n]): img for n, img in imgs.items()}
+                else path_golden(n, res)): img for n, img in imgs.items()}
+        record = dict(example="example6", path=PATH_RECORD,
+                      kept=sorted(imgs), config=PORT_ROUTE,
+                      route="the JAX package's PORT_ROUTE (Pallas kernels "
+                      "in interpret mode)")
     elif name == "restir":
-        out = {RESTIR_GOLDEN: render_example6_restir_jax(FULLRES_RES)}
+        if res != FULLRES_RES:
+            raise SystemExit("--res goes with still and path only")
+        out = {RESTIR_GOLDEN: render_example6_restir_jax(res)}
+        record = None
     else:
         raise SystemExit(f"unknown golden {name!r}: still, path or restir")
     seconds = time.perf_counter() - t0
@@ -753,6 +804,10 @@ def regen(name, frames=None, out_dir=None):
         write_png(path, img)
         print(f"wrote {path}: {os.path.getsize(path)} bytes, mean "
               f"{img.mean():.4f}")
+        if record is not None and res != FULLRES_RES and not out_dir:
+            _write_json(path[:-len(".png")] + ".json", dict(
+                record, res=list(res), seed=0, seconds=seconds,
+                peak_host_gib=peak_gb, bytes=os.path.getsize(path)))
     print(f"{name}: render {seconds:.1f} s, peak host memory "
           f"{peak_gb:.2f} GiB")
 
@@ -772,8 +827,9 @@ if __name__ == "__main__":
                     help="'--gap' only: the JAX package's CPU default route "
                     "or PORT_ROUTE")
     ap.add_argument("names", nargs="*",
-                    help="'examples' only: the scenes (default: "
-                    f"{' '.join(EXAMPLES + (RESTIR_EXAMPLE,))})")
+                    help="'examples': the scenes (default: "
+                    f"{' '.join(EXAMPLES + (RESTIR_EXAMPLE,))}); 'sky': the "
+                    "one example whose sky to make (default example6)")
     ap.add_argument("--jobs", type=int, default=1,
                     help="'examples' only: scenes made side by side "
                     "(about 12 GB of host memory each)")
@@ -781,9 +837,14 @@ if __name__ == "__main__":
                     help="'path' only: frames to keep, e.g. 1,2,24")
     ap.add_argument("--out", default=None,
                     help="'path' only: write the kept frames here as fNN.png")
-    ap.add_argument("--sky-res", default=",".join(map(str, SKY_RES)),
+    ap.add_argument("--sky-res", default=None,
                     help="'sky' only: the skybox_res of each golden, made "
-                    "in this order")
+                    f"in this order (default: {','.join(map(str, SKY_RES))} "
+                    "for example6, 128 for another example)")
+    ap.add_argument("--res", default=None, metavar="WxH",
+                    help="'still' and 'path' only: the image size (default "
+                    f"{FULLRES_RES[0]}x{FULLRES_RES[1]}; "
+                    f"{REF_RES[0]}x{REF_RES[1]} is the reference's own)")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     if args.gap:
@@ -797,7 +858,10 @@ if __name__ == "__main__":
     if (args.frames is None) != (args.out is None):
         ap.error("--frames and --out go together")
     if args.regen == "sky":
-        regen_sky(tuple(int(r) for r in args.sky_res.split(",")))
+        (name,) = args.names or ["example6"]
+        sizes = (args.sky_res or (",".join(map(str, SKY_RES))
+                                  if name == "example6" else "128"))
+        regen_sky(tuple(int(r) for r in sizes.split(",")), name)
         sys.exit(0)
     if args.regen == "examples":
         known = EXAMPLES + (RESTIR_EXAMPLE,)
@@ -806,9 +870,11 @@ if __name__ == "__main__":
         regen_examples(tuple(args.names) or known, args.jobs)
         sys.exit(0)
     if args.names:
-        ap.error("scene names go with --regen examples only")
+        ap.error("scene names go with --regen examples and sky only")
     if args.out:
         os.makedirs(args.out, exist_ok=True)
     regen(args.regen,
           frames=tuple(int(n) for n in args.frames.split(","))
-          if args.frames else None, out_dir=args.out)
+          if args.frames else None, out_dir=args.out,
+          res=tuple(int(x) for x in args.res.split("x")) if args.res
+          else FULLRES_RES)

@@ -307,6 +307,9 @@ def report(cfg, scene, params, device, dps, n_samples, sp=1, key=None,
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--dp", type=int, nargs="+", default=[8, 32])
+    ap.add_argument("--sp", type=int, default=1,
+                    help="devices a block's samples are spread over (the "
+                         "'sp' axis; a mesh of dp x sp devices)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA cards, raising "
                          "without one)")
@@ -324,7 +327,8 @@ def main(argv=None):
     r = sc.renderer
     r.prepare_data()
     rep = report(r.cfg, r.scene_data, r._params(1e9), device, args.dp,
-                 r.cfg.samples_per_launch, smi=card_name(device))
+                 r.cfg.samples_per_launch, sp=args.sp,
+                 smi=card_name(device))
     print(json.dumps(rep))
     if not rep["ok"]:
         print("FAIL: a partitioned state is not equal to one device's",

@@ -223,7 +223,11 @@ __device__ void step(const Tables& T, const Ray& r, State& s, bool sun) {
   unpack_word(s.word, px, py, pz, nx, ny, nz);
   bool inb = px >= 0 && px < res && py >= 0 && py < res && pz >= 0 &&
              pz < res;
-  if (s.t > r.far || !inb) {
+  // A ray whose t reached BIG can cross no face: its direction is zero
+  // (every exit BIG), so its far clip is BIG too and t > far never fires.
+  // Without the second test it would spin in its cell until its advance
+  // budget ran out (the JAX kernel does: 513 advances, then exhausted).
+  if (s.t > r.far || s.t >= BIG || !inb) {
     s.t = BIG;
     s.active = 0;
     return;

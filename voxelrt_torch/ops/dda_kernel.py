@@ -297,7 +297,9 @@ def _step(T, r, s, max_advances, sun):
     px, py, pz, nx, ny, nz = _unpack_word(s["word"])
     inb = ((px >= 0) & (px < res) & (py >= 0) & (py < res) & (pz >= 0)
            & (pz < res))
-    live = ~(s["t"] > r["far"]) & inb
+    # t at BIG: a zero direction, which crosses no face; a miss, not a
+    # spin to the advance cap (csrc/dda.cu, step)
+    live = ~(s["t"] > r["far"]) & (s["t"] < BIG) & inb
     if sun:
         li = torch.nonzero(live).squeeze(1)
         cell = ((pz[li] >> 2) * r2 + (py[li] >> 2)) * r2 + (px[li] >> 2)
