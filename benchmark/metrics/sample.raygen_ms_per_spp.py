@@ -1,0 +1,10 @@
+"""sample.raygen_ms_per_spp: stream ms of the span ``sample.raygen`` (primary
+rays, the starting buffers, the pixel ids and the key fold), its self time
+summed over the traced chunk, over its samples (layer: wavefront sample;
+moves ``spp_per_s``)."""
+
+from benchmark.metrics.program_spans import stream_ms_per_spp
+
+
+def read(rec):
+    return stream_ms_per_spp(rec, "sample.raygen")

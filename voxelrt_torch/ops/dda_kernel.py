@@ -53,6 +53,7 @@ import torch
 
 from voxelrt_torch.ops import _cuda
 from voxelrt_torch.ops.v3 import V3
+from voxelrt_torch.utils import profiling
 
 BIG = 3.0e38
 EPS = 1e-6
@@ -104,6 +105,10 @@ class PallasTraceResult(NamedTuple):
     # int32 (3,) on the rays' device: alive rays traced, NEE shadow rays
     # marched, NEE shadow rays settled at conversion (``nee_src_open``)
     counts: torch.Tensor | None = None
+
+
+# the counter names of ``counts``' three entries
+B1_COUNTS = ("b1.alive", "b1.nee_listed", "b1.nee_settled")
 
 
 # --- plain twin ---------------------------------------------------------------
@@ -605,15 +610,31 @@ def raytrace(tables: DeviceTables, origin: V3, direction: V3, tmin, tmax,
     every advance here); ``nee_src_open`` settles an NEE shadow ray whose
     clip misses the grid or whose entry cell is sun-open as visible at
     conversion. CPU tensors run the plain twin; CUDA tensors launch the
-    kernel, with no host synchronisation: ``counts`` stays on the card."""
+    kernel, with no host synchronisation: ``counts`` stays on the card.
+
+    The dispatch is the span ``kernels.b1``; its counters are ``b1.rays``
+    (the rays handed to it) and B1's own ``counts``: ``b1.alive``,
+    ``b1.nee_listed`` and ``b1.nee_settled``, kept on the card."""
     dev = origin.x.device
-    if dev.type == "cpu":
-        return raytrace_plain(tables, origin, direction, tmin, tmax,
-                              max_advances, nee, alive, any_hit,
-                              fetch_colors, use_sun_open, sun_mode,
-                              nee_src_open)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
+    with profiling.span("kernels.b1"):
+        trace = raytrace_plain if dev.type == "cpu" else _raytrace_cuda
+        tr = trace(tables, origin, direction, tmin, tmax, max_advances, nee,
+                   alive, any_hit, fetch_colors, use_sun_open, sun_mode,
+                   nee_src_open)
+        if profiling.recording():
+            profiling.count("b1.rays", origin.x.shape[0], any_hit=any_hit)
+            for i, name in enumerate(B1_COUNTS):
+                profiling.count(name, tr.counts[i], any_hit=any_hit)
+    return tr
+
+
+def _raytrace_cuda(tables, origin, direction, tmin, tmax, max_advances, nee,
+                   alive, any_hit, fetch_colors, use_sun_open, sun_mode,
+                   nee_src_open) -> PallasTraceResult:
+    """B1 on the card (see ``raytrace``)."""
+    dev = origin.x.device
     _check_mode(any_hit, fetch_colors, nee, use_sun_open, sun_mode)
     n = origin.x.shape[0]
     f32, i32 = torch.float32, torch.int32

@@ -31,6 +31,7 @@ from voxelrt_torch.ops.tonemap import render_to_image
 from voxelrt_torch.ops.v3 import V3
 from voxelrt_torch.render import temporal
 from voxelrt_torch.render.pathtracer import trace_sample
+from voxelrt_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -208,79 +209,83 @@ def trace_frame(cfg, scene, params, state: RenderState, keys,
     ``trace_fn``: a replacement for :func:`trace_sample` with the same
     signature and the same per-lane outputs, as parallel.sharding's trace
     of a block's lanes over several devices is."""
-    h = cfg.image_res[1]
-    aw, ah = active_res(cfg, render_scale)
-    rows = state.color.shape[0]
-    ra = active_rows(aw, lo, rows)
-    scaled = (ra, ah) != (rows, h)
-    dev = state.color.device
-    k = max(1, cfg.samples_per_launch)
-    if cfg.use_restir_pt and k != 1:
-        # the GRIS pass consumes one reservoir per pixel
-        raise ValueError("samples_per_launch must be 1 with ReSTIR-PT")
-    gb_old = dict(
-        normals=state.gbuff_normals, depth=state.gbuff_depth,
-        depth_reflection=state.gbuff_depth_reflection,
-        position=state.gbuff_position, mat_id=state.gbuff_mat_id)
-    prev = dict(prev_depth=state.gbuff_prev_depth,
-                prev_normals=state.gbuff_prev_normals)
-    if ra == 0:
-        # rows outside the active region keep their buffers (below), and
-        # their reservoir images are the embedding's zeros
-        reservoir = None
-        if cfg.use_restir_pt:
-            reservoir = {name: torch.zeros_like(x)
-                         for name, x in state.reservoirs[0].items()}
-        return dict(color=state.color, color_spec=state.color_spec,
-                    gbuffer={**gb_old, **prev}, reservoir=reservoir)
-    n = ra * ah
-    u, v, s_of_ray = wf
-    key_t, jit = keys
-    k0, k1 = key_t.to(dev, non_blocking=True)
-    ju = jit.to(dev, non_blocking=True)
-    out = (trace_fn or trace_sample)(cfg, scene, params, u, v,
-                       (k0[s_of_ray], k1[s_of_ray]),
-                       (ju[s_of_ray, 0], ju[s_of_ray, 1]),
-                       camera_is_moving, render_scale)
+    with profiling.span("pipeline.trace_frame"):
+        h = cfg.image_res[1]
+        aw, ah = active_res(cfg, render_scale)
+        rows = state.color.shape[0]
+        ra = active_rows(aw, lo, rows)
+        scaled = (ra, ah) != (rows, h)
+        dev = state.color.device
+        k = max(1, cfg.samples_per_launch)
+        if cfg.use_restir_pt and k != 1:
+            # the GRIS pass consumes one reservoir per pixel
+            raise ValueError("samples_per_launch must be 1 with ReSTIR-PT")
+        gb_old = dict(
+            normals=state.gbuff_normals, depth=state.gbuff_depth,
+            depth_reflection=state.gbuff_depth_reflection,
+            position=state.gbuff_position, mat_id=state.gbuff_mat_id)
+        prev = dict(prev_depth=state.gbuff_prev_depth,
+                    prev_normals=state.gbuff_prev_normals)
+        if ra == 0:
+            # rows outside the active region keep their buffers (below), and
+            # their reservoir images are the embedding's zeros
+            reservoir = None
+            if cfg.use_restir_pt:
+                reservoir = {name: torch.zeros_like(x)
+                             for name, x in state.reservoirs[0].items()}
+            return dict(color=state.color, color_spec=state.color_spec,
+                        gbuffer={**gb_old, **prev}, reservoir=reservoir)
+        n = ra * ah
+        u, v, s_of_ray = wf
+        key_t, jit = keys
+        k0, k1 = key_t.to(dev, non_blocking=True)
+        ju = jit.to(dev, non_blocking=True)
+        out = (trace_fn or trace_sample)(cfg, scene, params, u, v,
+                           (k0[s_of_ray], k1[s_of_ray]),
+                           (ju[s_of_ray, 0], ju[s_of_ray, 1]),
+                           camera_is_moving, render_scale)
 
-    def sample_mean(x):
-        acc = x[:n]
-        for s in range(1, k):
-            acc = acc + x[s * n:(s + 1) * n]
-        return acc / k
+        with profiling.span("pipeline.embed"):
+            def sample_mean(x):
+                acc = x[:n]
+                for s in range(1, k):
+                    acc = acc + x[s * n:(s + 1) * n]
+                return acc / k
 
-    diffuse = V3(*(sample_mean(c) for c in out["diffuse"]))
-    specular = V3(*(sample_mean(c) for c in out["specular"]))
-    tiled = block_tiled(aw, ah, ra)
+            diffuse = V3(*(sample_mean(c) for c in out["diffuse"]))
+            specular = V3(*(sample_mean(c) for c in out["specular"]))
+            tiled = block_tiled(aw, ah, ra)
 
-    def img(x):
-        if isinstance(x, tuple):  # V3 or the octahedral normal pair
-            return torch.stack([img(c) for c in x], dim=-1)
-        a = _untile(ra, ah, x[:n], tiled)
-        if not scaled:
-            return a
-        full = torch.zeros((rows, h) + tuple(a.shape[2:]), dtype=a.dtype,
-                           device=dev)
-        full[:ra, :ah] = a
-        return full
+            def img(x):
+                if isinstance(x, tuple):  # V3 or the octahedral normal pair
+                    return torch.stack([img(c) for c in x], dim=-1)
+                a = _untile(ra, ah, x[:n], tiled)
+                if not scaled:
+                    return a
+                full = torch.zeros((rows, h) + tuple(a.shape[2:]),
+                                   dtype=a.dtype, device=dev)
+                full[:ra, :ah] = a
+                return full
 
-    # Out-of-area pixels keep their previous buffers (the reference's
-    # is_outside_render_area contract): there the embedded mask is False.
-    inside = img(out["inside"])
+            # Out-of-area pixels keep their previous buffers (the
+            # reference's is_outside_render_area contract): there the
+            # embedded mask is False.
+            inside = img(out["inside"])
 
-    def sel(new, old):
-        m = inside[..., None] if new.dim() == 3 else inside
-        return torch.where(m, new, old)
+            def sel(new, old):
+                m = inside[..., None] if new.dim() == 3 else inside
+                return torch.where(m, new, old)
 
-    gbuffer = {name: sel(img(out[f"gbuff_{name}"]), old)
-               for name, old in gb_old.items()}
-    gbuffer.update(prev)
-    reservoir = None
-    if cfg.use_restir_pt:
-        reservoir = {name: img(x) for name, x in out["reservoir"].items()}
-    return dict(color=sel(img(diffuse), state.color),
-                color_spec=sel(img(specular), state.color_spec),
-                gbuffer=gbuffer, reservoir=reservoir)
+            gbuffer = {name: sel(img(out[f"gbuff_{name}"]), old)
+                       for name, old in gb_old.items()}
+            gbuffer.update(prev)
+            reservoir = None
+            if cfg.use_restir_pt:
+                reservoir = {name: img(x)
+                             for name, x in out["reservoir"].items()}
+            return dict(color=sel(img(diffuse), state.color),
+                        color_spec=sel(img(specular), state.color_spec),
+                        gbuffer=gbuffer, reservoir=reservoir)
 
 
 def resolve_frame(cfg, scene, params, state: RenderState, frame, key,
@@ -296,60 +301,64 @@ def resolve_frame(cfg, scene, params, state: RenderState, frame, key,
     ceil(restir_radius) rows each side (a tap's offset is below the
     radius, restir.py), the prepass's 4×4 window 1 row before and 2 after.
     A moving frame runs on the whole image only."""
-    w, h = cfg.image_res
-    rows = state.color.shape[0]
-    hi = lo + rows
-    if camera_is_moving and (lo, rows) != (0, w):
-        raise ValueError("a moving frame runs on the whole image")
-    if halo is None:
-        def halo(get, a, b):
-            return get(frame)[a - lo:b - lo]
-    k = max(1, cfg.samples_per_launch)
-    color, color_spec = frame["color"], frame["color_spec"]
-    gbuffer = dict(frame["gbuffer"])
-    reservoirs = state.reservoirs
-    if cfg.use_restir_pt:
-        from voxelrt_torch.render.restir import spatial_gris
+    with profiling.span("pipeline.resolve_frame"):
+        w, h = cfg.image_res
+        rows = state.color.shape[0]
+        hi = lo + rows
+        if camera_is_moving and (lo, rows) != (0, w):
+            raise ValueError("a moving frame runs on the whole image")
+        if halo is None:
+            def halo(get, a, b):
+                return get(frame)[a - lo:b - lo]
+        k = max(1, cfg.samples_per_launch)
+        color, color_spec = frame["color"], frame["color_spec"]
+        gbuffer = dict(frame["gbuffer"])
+        reservoirs = state.reservoirs
+        if cfg.use_restir_pt:
+            from voxelrt_torch.render.restir import spatial_gris
 
-        r = math.ceil(cfg.restir_radius)
-        a, b = max(0, lo - r), min(w, hi + r)
-        res_ext = {name: halo(lambda f, n=name: f["reservoir"][n], a, b)
-                   for name in frame["reservoir"]}
-        gbuf_ext = {name: halo(lambda f, n=name: f["gbuffer"][n], a, b)
-                    for name in ("normals", "depth", "mat_id")}
-        color, color_spec, reservoirs = spatial_gris(
-            cfg, scene, params, res_ext, color, color_spec, gbuf_ext,
-            state.frame, fold_in(key, 7777), camera_is_moving, render_scale,
-            lo=lo, ext_lo=a)
-        del res_ext, gbuf_ext
+            with profiling.span("restir.gris"):
+                r = math.ceil(cfg.restir_radius)
+                a, b = max(0, lo - r), min(w, hi + r)
+                res_ext = {name: halo(lambda f, n=name: f["reservoir"][n],
+                                      a, b)
+                           for name in frame["reservoir"]}
+                gbuf_ext = {name: halo(lambda f, n=name: f["gbuffer"][n],
+                                       a, b)
+                            for name in ("normals", "depth", "mat_id")}
+                color, color_spec, reservoirs = spatial_gris(
+                    cfg, scene, params, res_ext, color, color_spec, gbuf_ext,
+                    state.frame, fold_in(key, 7777), camera_is_moving,
+                    render_scale, lo=lo, ext_lo=a)
+                del res_ext, gbuf_ext
 
-    def refl(f):
-        return f["gbuffer"]["depth_reflection"]
+        def refl(f):
+            return f["gbuffer"]["depth_reflection"]
 
-    color, color_spec, refl_depth = temporal.temporal_prepass(
-        cfg, color, color_spec, gbuffer["depth_reflection"], render_scale,
-        lo=lo, halo=(halo(refl, max(0, lo - 1), lo),
-                     halo(refl, hi, min(w, hi + 2))))
-    gbuffer["depth_reflection"] = refl_depth
+        color, color_spec, refl_depth = temporal.temporal_prepass(
+            cfg, color, color_spec, gbuffer["depth_reflection"], render_scale,
+            lo=lo, halo=(halo(refl, max(0, lo - 1), lo),
+                         halo(refl, hi, min(w, hi + 2))))
+        gbuffer["depth_reflection"] = refl_depth
 
-    color, history = temporal.temporal_filter(
-        cfg, params, color, state.history, gbuffer, render_scale,
-        camera_is_moving, sample_weight=float(k), lo=lo)
-    color, history_spec, history_spec_depth = \
-        temporal.temporal_filter_specular(
-            cfg, params, color, color_spec, state.history_spec,
-            state.history_spec_depth, gbuffer, render_scale,
+        color, history = temporal.temporal_filter(
+            cfg, params, color, state.history, gbuffer, render_scale,
             camera_is_moving, sample_weight=float(k), lo=lo)
+        color, history_spec, history_spec_depth = \
+            temporal.temporal_filter_specular(
+                cfg, params, color, color_spec, state.history_spec,
+                state.history_spec_depth, gbuffer, render_scale,
+                camera_is_moving, sample_weight=float(k), lo=lo)
 
-    return RenderState(
-        color=color, color_spec=color_spec, history=history,
-        history_spec=history_spec, history_spec_depth=history_spec_depth,
-        gbuff_normals=gbuffer["normals"], gbuff_depth=gbuffer["depth"],
-        gbuff_depth_reflection=gbuffer["depth_reflection"],
-        gbuff_position=gbuffer["position"], gbuff_mat_id=gbuffer["mat_id"],
-        gbuff_prev_depth=gbuffer["depth"],
-        gbuff_prev_normals=gbuffer["normals"], reservoirs=reservoirs,
-        spp=state.spp + k, frame=state.frame + 1)
+        return RenderState(
+            color=color, color_spec=color_spec, history=history,
+            history_spec=history_spec, history_spec_depth=history_spec_depth,
+            gbuff_normals=gbuffer["normals"], gbuff_depth=gbuffer["depth"],
+            gbuff_depth_reflection=gbuffer["depth_reflection"],
+            gbuff_position=gbuffer["position"], gbuff_mat_id=gbuffer["mat_id"],
+            gbuff_prev_depth=gbuffer["depth"],
+            gbuff_prev_normals=gbuffer["normals"], reservoirs=reservoirs,
+            spp=state.spp + k, frame=state.frame + 1)
 
 
 def accumulate(cfg, scene, params, state: RenderState, key,
@@ -366,14 +375,16 @@ def accumulate(cfg, scene, params, state: RenderState, key,
     out-of-area threads instead, renderer/pathtracer.py:289-291). Pixel ids,
     and so the per-pixel random streams, are unchanged."""
     dev = state.color.device
-    if wf is None:
-        wf = wavefront_constants(cfg, render_scale, dev)
-    keys = launch_keys(key, max(1, cfg.samples_per_launch),
-                       pin=dev.type == "cuda")
-    frame = trace_frame(cfg, scene, params, state, keys, camera_is_moving,
-                        render_scale, wf)
-    return resolve_frame(cfg, scene, params, state, frame, key,
-                         camera_is_moving, render_scale)
+    with profiling.span("pipeline.accumulate"):
+        if wf is None:
+            wf = wavefront_constants(cfg, render_scale, dev)
+        with profiling.span("pipeline.launch_keys"):
+            keys = launch_keys(key, max(1, cfg.samples_per_launch),
+                               pin=dev.type == "cuda")
+        frame = trace_frame(cfg, scene, params, state, keys, camera_is_moving,
+                            render_scale, wf)
+        return resolve_frame(cfg, scene, params, state, frame, key,
+                             camera_is_moving, render_scale)
 
 
 def accumulate_n(cfg, scene, params, state, key, camera_is_moving=False,

@@ -29,6 +29,7 @@ from voxelrt_torch.ops.transforms import (
     view_to_world,
     world_to_view,
 )
+from voxelrt_torch.utils import profiling
 
 
 def _window_sum(x, pad_rows):
@@ -59,39 +60,41 @@ def temporal_prepass(cfg, color, color_spec, refl_depth, render_scale, lo=0,
     ``halo`` = (the reflection depths of the rows [lo - 1, lo), of the rows
     [lo + rows, lo + rows + 2)), as far as the image has them; the window's
     zero padding applies at the active region's edges only."""
-    w, h = cfg.image_res
-    aw = max(int(w * render_scale), 1)
-    ah = max(int(h * render_scale), 1)
-    ra = max(0, min(lo + color.shape[0], aw) - lo)
-    if ra == 0:
+    with profiling.span("temporal.prepass"):
+        w, h = cfg.image_res
+        aw = max(int(w * render_scale), 1)
+        ah = max(int(h * render_scale), 1)
+        ra = max(0, min(lo + color.shape[0], aw) - lo)
+        if ra == 0:
+            return color, color_spec, refl_depth
+        before, after = halo if halo is not None else (refl_depth[:0],
+                                                       refl_depth[:0])
+        parts = [x for x in (before, refl_depth, after) if x.shape[0]]
+        ext = parts[0] if len(parts) == 1 else torch.cat(parts)
+        e0 = lo - before.shape[0]  # the image row of ext's first row
+        # the rows the windows reach, [lo - 1, lo + ra + 2), within the region
+        a, b = max(0, lo - 1), min(aw, lo + ra + 2)
+        pads = (a - (lo - 1), lo + ra + 2 - b)
+
+        rd = ext[a - e0:b - e0, :ah]
+        valid = (rd != 0.0).to(torch.float32)
+        rd_sum = _window_sum(rd * valid, pads)[..., 0]
+        rd_cnt = _window_sum(valid, pads)[..., 0]
+        rd_new = torch.where(rd_cnt > 0.01,
+                             rd_sum / torch.clamp(rd_cnt, min=1e-20), 0.0)
+
+        def scrub(c):
+            bad = torch.any(~torch.isfinite(c) | (c < 0.0), dim=-1,
+                            keepdim=True)
+            return torch.where(bad, 0.0, c)
+
+        color = color.clone()
+        color[:ra, :ah] = scrub(color[:ra, :ah])
+        color_spec = color_spec.clone()
+        color_spec[:ra, :ah] = scrub(color_spec[:ra, :ah])
+        refl_depth = refl_depth.clone()
+        refl_depth[:ra, :ah] = rd_new
         return color, color_spec, refl_depth
-    before, after = halo if halo is not None else (refl_depth[:0],
-                                                   refl_depth[:0])
-    parts = [x for x in (before, refl_depth, after) if x.shape[0]]
-    ext = parts[0] if len(parts) == 1 else torch.cat(parts)
-    e0 = lo - before.shape[0]  # the image row of ext's first row
-    # the rows the windows reach, [lo - 1, lo + ra + 2), within the region
-    a, b = max(0, lo - 1), min(aw, lo + ra + 2)
-    pads = (a - (lo - 1), lo + ra + 2 - b)
-
-    rd = ext[a - e0:b - e0, :ah]
-    valid = (rd != 0.0).to(torch.float32)
-    rd_sum = _window_sum(rd * valid, pads)[..., 0]
-    rd_cnt = _window_sum(valid, pads)[..., 0]
-    rd_new = torch.where(rd_cnt > 0.01,
-                         rd_sum / torch.clamp(rd_cnt, min=1e-20), 0.0)
-
-    def scrub(c):
-        bad = torch.any(~torch.isfinite(c) | (c < 0.0), dim=-1, keepdim=True)
-        return torch.where(bad, 0.0, c)
-
-    color = color.clone()
-    color[:ra, :ah] = scrub(color[:ra, :ah])
-    color_spec = color_spec.clone()
-    color_spec[:ra, :ah] = scrub(color_spec[:ra, :ah])
-    refl_depth = refl_depth.clone()
-    refl_depth[:ra, :ah] = rd_new
-    return color, color_spec, refl_depth
 
 
 def _pixel_texcoords(cfg, render_scale, device, lo=0, rows=None):
@@ -311,29 +314,31 @@ def temporal_filter(cfg, params, state_color, history, gbuffer,
     weight advances by it so the accumulation stays an exact running mean.
     ``lo``: the image row of the buffers' first row (a still frame's block
     of rows)."""
-    texcoord, center_x1, skip = _center(cfg, params, gbuffer, render_scale,
-                                        lo)
-    if moving:
-        center_n = packing.decode_unit_vector_3x16(gbuffer["normals"])
-        rp = reproject(center_x1, params.prev_view, params.prev_proj)
-        current, w_sum, hist, _ = _moving_taps(
-            cfg, params, state_color, history, gbuffer, texcoord, rp,
-            linearize_depth(rp[..., 2], params.proj_inv), center_n,
-            render_scale, gate_depth=True)
-    else:
-        current, w_sum, hist = state_color, None, history
+    with profiling.span("temporal.filter"):
+        texcoord, center_x1, skip = _center(cfg, params, gbuffer, render_scale,
+                                            lo)
+        if moving:
+            center_n = packing.decode_unit_vector_3x16(gbuffer["normals"])
+            rp = reproject(center_x1, params.prev_view, params.prev_proj)
+            current, w_sum, hist, _ = _moving_taps(
+                cfg, params, state_color, history, gbuffer, texcoord, rp,
+                linearize_depth(rp[..., 2], params.proj_inv), center_n,
+                render_scale, gate_depth=True)
+        else:
+            current, w_sum, hist = state_color, None, history
 
-    hist_out, _, _ = _blend(hist, current, w_sum, sample_weight,
-                            params.max_accum_frames)
-    out_color = hist_out[..., 0:3]
-    if moving:
-        # re-modulate by the stored albedo (renderer/pathtracer.py:1223-1228)
-        _, albedo = packing.decode_material_word(gbuffer["mat_id"])
-        out_color = out_color * albedo
+        hist_out, _, _ = _blend(hist, current, w_sum, sample_weight,
+                                params.max_accum_frames)
+        out_color = hist_out[..., 0:3]
+        if moving:
+            # re-modulate by the stored albedo
+            # (renderer/pathtracer.py:1223-1228)
+            _, albedo = packing.decode_material_word(gbuffer["mat_id"])
+            out_color = out_color * albedo
 
-    new_history = torch.where(skip[..., None], history, hist_out)
-    new_color = torch.where(skip[..., None], state_color, out_color)
-    return new_color, new_history
+        new_history = torch.where(skip[..., None], history, hist_out)
+        new_color = torch.where(skip[..., None], state_color, out_color)
+        return new_color, new_history
 
 
 def temporal_filter_specular(cfg, params, color, color_spec, history_spec,
@@ -342,33 +347,35 @@ def temporal_filter_specular(cfg, params, color, color_spec, history_spec,
     """Specular temporal filter (renderer/pathtracer.py:1242-1303).
     Returns (color_with_specular, new_history_spec, new_history_spec_depth);
     ``lo`` as in :func:`temporal_filter`."""
-    texcoord, center_x1, skip = _center(cfg, params, gbuffer, render_scale,
-                                        lo)
-    center_refl_depth = gbuffer["depth_reflection"]
-    if moving:
-        center_n = packing.decode_unit_vector_3x16(gbuffer["normals"])
-        refl_nonlin = delinearize_depth(center_refl_depth, params.proj)
-        refl_pos = view_to_world(
-            screen_to_view(texcoord, refl_nonlin, params.proj_inv),
-            params.view_inv)
-        rp_src = torch.where((center_refl_depth != 0.0)[..., None], refl_pos,
-                             center_x1)
-        rp = reproject(rp_src, params.prev_view, params.prev_proj)
-        current, w_sum, hist, hist_depth = _moving_taps(
-            cfg, params, color_spec, history_spec, gbuffer, texcoord, rp,
-            linearize_depth(rp[..., 2], params.proj_inv), center_n,
-            render_scale, gate_depth=False, extra=history_spec_depth)
-    else:
-        current, w_sum, hist = color_spec, None, history_spec
-        hist_depth = history_spec_depth
+    with profiling.span("temporal.filter_specular"):
+        texcoord, center_x1, skip = _center(cfg, params, gbuffer, render_scale,
+                                            lo)
+        center_refl_depth = gbuffer["depth_reflection"]
+        if moving:
+            center_n = packing.decode_unit_vector_3x16(gbuffer["normals"])
+            refl_nonlin = delinearize_depth(center_refl_depth, params.proj)
+            refl_pos = view_to_world(
+                screen_to_view(texcoord, refl_nonlin, params.proj_inv),
+                params.view_inv)
+            rp_src = torch.where((center_refl_depth != 0.0)[..., None],
+                                 refl_pos, center_x1)
+            rp = reproject(rp_src, params.prev_view, params.prev_proj)
+            current, w_sum, hist, hist_depth = _moving_taps(
+                cfg, params, color_spec, history_spec, gbuffer, texcoord, rp,
+                linearize_depth(rp[..., 2], params.proj_inv), center_n,
+                render_scale, gate_depth=False, extra=history_spec_depth)
+        else:
+            current, w_sum, hist = color_spec, None, history_spec
+            hist_depth = history_spec_depth
 
-    hist_out, has_hist, new_w = _blend(hist, current, w_sum, sample_weight,
-                                       params.max_accum_frames)
-    depth_out = mix(hist_depth, center_refl_depth, sample_weight / new_w)
-    if has_hist is not None:
-        depth_out = torch.where(has_hist, depth_out, center_refl_depth)
+        hist_out, has_hist, new_w = _blend(hist, current, w_sum, sample_weight,
+                                           params.max_accum_frames)
+        depth_out = mix(hist_depth, center_refl_depth, sample_weight / new_w)
+        if has_hist is not None:
+            depth_out = torch.where(has_hist, depth_out, center_refl_depth)
 
-    new_history = torch.where(skip[..., None], history_spec, hist_out)
-    new_depth = torch.where(skip, history_spec_depth, depth_out)
-    new_color = torch.where(skip[..., None], color, color + hist_out[..., 0:3])
-    return new_color, new_history, new_depth
+        new_history = torch.where(skip[..., None], history_spec, hist_out)
+        new_depth = torch.where(skip, history_spec_depth, depth_out)
+        new_color = torch.where(skip[..., None], color,
+                                color + hist_out[..., 0:3])
+        return new_color, new_history, new_depth
