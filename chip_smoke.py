@@ -26,7 +26,12 @@ dispatch once under ``torch.cuda.set_sync_debug_mode("error")``; the alive
 count and the NEE shadow rays marched and settled at conversion), 6 the
 steady-state rate and a profiled launch (its kernel count printed), 7 B2
 and B3's three entries against their twins on main-path inputs and on a
-million random directions and coordinates (B3 by int32 bits), 8 a
+million random directions and coordinates (B3 by int32 bits), 7b kernel
+S against its twin ``shade_depth_eager`` on the main path's own state at
+each depth (one more launch of the main path's renderer on the eager route
+a depth, ``tools/shade_kernel_torch.py`` ``run_depth``: each output by its
+bits, at most 0.1% of the lanes off and by 1e-5 relative at most, the
+lanes that do not trace left as they were), 8 a
 small-render check of the card path against the CPU
 path; 9 the moving path (24 moving frames at 640x360 active, then 6 still
 frames, counters set to 0 just before and read just after, B4's routes
@@ -1078,10 +1083,13 @@ def phase_routes():
             fail(f"{tag}: image is not finite or constant")
         depth = r.cfg.max_ray_depth
         sort = tag == "sort_rays"
+        # the sorted route shades eagerly (B3's cone centre at each depth),
+        # the table route through the shade kernel (B3's once a launch)
         want = dict(traverse=2 * depth if sort else depth,
                     traverse_shadow=depth if sort else 0,
                     traverse_nee=0 if sort else depth, point_fetch=1,
-                    bilinear_fetch_dirs=depth + 1)
+                    bilinear_fetch_dirs=depth + 1 if sort else 2,
+                    shade=0 if sort else depth)
         for k, v in want.items():
             if launches[k] != v:
                 fail(f"{tag}: {launches[k]} {k} launches, expected {v}")
@@ -2872,15 +2880,16 @@ def main():
     if float(img.std()) <= 1e-4:
         fail("image is constant")
     for kname in ("traverse", "traverse_compact", "traverse_nee",
-                  "point_fetch", "bilinear_fetch_dirs"):
+                  "point_fetch", "bilinear_fetch_dirs", "shade"):
         if launches[kname] <= 0:
             fail(f"kernel {kname} was not launched on the main path")
-    # a launch: B2 once (the escape sky), B3 at directions at each depth
-    # (the cone centre's NEE transmittance) and once for the escape's
+    # a launch: B2 once (the escape sky), B3 at directions twice (the cone
+    # centre's NEE transmittance, once for every depth of the shade kernel,
+    # and the escape's) and the shade kernel at each depth
     n_launch = MAIN_SPP // MAIN_SPL
     want = dict(point_fetch=n_launch, bilinear_fetch=0,
-                bilinear_fetch_dirs=(r.cfg.max_ray_depth + 1) * n_launch,
-                bilinear_fetch_dirs2=0)
+                bilinear_fetch_dirs=2 * n_launch, bilinear_fetch_dirs2=0,
+                shade=r.cfg.max_ray_depth * n_launch)
     for kname, v in want.items():
         if launches[kname] != v:
             fail(f"main path: {launches[kname]} {kname} launches, expected "
@@ -2960,6 +2969,23 @@ def main():
         if not b3[tag]["ok"]:
             fail(f"B3 ({tag}) is not bit-equal to its twin")
     del b3_cases, dm, um, dmv, umv
+
+    # -- 7b. kernel S vs twin on the main path's own state ---------------------
+    # Each depth of a 16-sample launch of the main path's renderer, 14.7M
+    # lanes, its state taken as it enters the shading on the eager route;
+    # kernel S and the twin shade it from the same copy.
+    from tools import shade_kernel_torch as skt
+
+    shade = []
+    for depth in range(r.cfg.max_ray_depth):
+        c = skt.run_depth(r, depth, reps=10)
+        c["ok"] = (c["lanes_differ"] <= c["lanes"] // 1000
+                   and c["worst_rel"] <= 1e-5 and c["dead_changed"] == 0)
+        shade.append(c)
+        print(f"S depth {depth}: {json.dumps(c)}", flush=True)
+        if not c["ok"]:
+            fail(f"kernel S at depth {depth} disagrees with its twin")
+    torch.cuda.empty_cache()
 
     # -- 8. small render: card path vs the plain CPU path ----------------------
     small = {}
@@ -3411,6 +3437,24 @@ def main():
              path_routes=b4_path_routes,
              ref_res_variants={k: {f: c[f] for f in check_keys + (
                  "m", "unequal_lanes")} for k, c in rk["b4"].items()}),
+        dict(name="S shade", route="cuda",
+             source="voxelrt_torch/csrc/shade.cu",
+             replaces=None,  # the JAX package leaves this block to XLA
+             launches=launches["shade"],
+             lanes_differ=sum(c["lanes_differ"] for c in shade),
+             max_rel_err=max(c["worst_rel"] for c in shade),
+             ms=shade[0]["device_ms"],
+             ms_with_wrapper=shade[0]["ms_with_wrapper"],
+             plain_ms=shade[0]["plain_ms"], bound_ms=shade[0]["bound_ms"],
+             bound_by="bytes", library_ms=None,
+             shape=f"{shade[0]['lanes']} lanes (depth 0 of a launch)",
+             depth_ms=[c["device_ms"] for c in shade],
+             depth_ms_with_wrapper=[c["ms_with_wrapper"] for c in shade],
+             depth_plain_ms=[c["plain_ms"] for c in shade],
+             depth_bound_ms=[c["bound_ms"] for c in shade],
+             depth_alive=[c["alive"] for c in shade],
+             depth_surf=[c["surf"] for c in shade],
+             depth_lanes_differ=[c["lanes_differ"] for c in shade]),
         dict(name="P probe", route="cuda",
              source="voxelrt_torch/csrc/probe.cu",
              replaces="tools/pallas_probe.py:30",
@@ -3446,7 +3490,8 @@ def main():
     counter = {"B1 traverse": "traverse", "B2 point_fetch_words": "point_fetch",
                "B3 bilinear_fetch_dirs": "bilinear_fetch_dirs",
                "B3 bilinear_fetch_dirs2": "bilinear_fetch_dirs2",
-               "B4 temporal_taps": "temporal_taps", "P probe": "probe"}
+               "B4 temporal_taps": "temporal_taps", "S shade": "shade",
+               "P probe": "probe"}
     for k in kernels:
         k["phase_launches"] = {tag: v.get(counter[k["name"]], 0)
                                for tag, v in phase_launches.items()}
@@ -3456,7 +3501,8 @@ def main():
                        samples_per_launch=MAIN_SPL,
                        peak_gb=peak_gb, small_rmse=rmse, device=smi,
                        steady_per_spp_ms=steady_ms, profile=prof,
-                       b1_depths=b1, b3=b3, moving_frame_ms=moving_frame_ms,
+                       b1_depths=b1, b3=b3, shade=shade,
+                       moving_frame_ms=moving_frame_ms,
                        still_frame_ms=still_frame_ms, moving_wall_ms=walls,
                        moving_launches=mlaunches, moving_peak_gb=mpeak_gb,
                        b4=b4, moving_profile=mprof, viewer=view,

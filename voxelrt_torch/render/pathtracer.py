@@ -8,7 +8,11 @@ the diffuse/specular split + G-buffer epilogue. Traversal goes through
 kernel B1 (ops/dda_kernel.py): with ``nee_in_kernel`` (the default) one
 closest-hit dispatch per depth that also traces the sun-cone shadow ray,
 without it a closest-hit dispatch and a separate any-hit sun-shadow dispatch
-per depth. The escape sky goes through kernels B2/B3 (sky/atmos.py):
+per depth. Each depth's shading (BSDF, NEE, MIS, the escape and emissive
+terminations) is one launch of the shade kernel (ops/shade_kernel.py) on
+the card's still and moving-frame paths, and its plain twin
+``shade_depth_eager`` elsewhere. The escape sky goes through kernels B2/B3
+(sky/atmos.py):
 ``sky_fetch='stochastic'`` reads one corner per ray through B2,
 ``'bilinear'`` four corners of both maps through B3 over the whole
 wavefront; ``nee_transmittance='per_ray'`` runs B3 per light direction at
@@ -45,12 +49,13 @@ Every mode of the JAX package's ``trace_sample`` runs here:
 
 from __future__ import annotations
 
+import types
 from typing import Any, NamedTuple
 
 import torch
 
 from voxelrt_torch.materials import fetch_material
-from voxelrt_torch.ops import packing, v3
+from voxelrt_torch.ops import packing, shade_kernel, v3
 from voxelrt_torch.ops.bsdf import (
     ALL_FEATURES,
     LOBE_DIFFUSE,
@@ -61,6 +66,7 @@ from voxelrt_torch.ops.bsdf import (
 )
 from voxelrt_torch.ops.dda_kernel import nee_params, raytrace
 from voxelrt_torch.ops.prng import fold_in, uniform
+from voxelrt_torch.ops.shade_kernel import shade_kernel_applies
 from voxelrt_torch.ops.sampling import (
     EPS,
     INF,
@@ -421,6 +427,287 @@ def nee_transmittance(cfg, scene, params, light_dir: V3) -> V3:
     return sky_transmittance(cfg, scene, light_dir)
 
 
+class PathState(types.SimpleNamespace):
+    """The bounce loop's per-ray state in ``trace_sample``: the path
+    (``pos``, ``d``, ``tracing``, ``throughput``, ``contrib``), the deferred
+    escape record (``esc_dir``, ``esc_u3``, ``esc_weight``), the depth-0
+    records (``primary_*``, ``first_*``, ``is_sky_ray``), depth 1's
+    ``first_bounce_reflection_dist`` and, under ReSTIR, ``rc``,
+    ``throughput_after_rc`` and ``rc_bounce_lobe_id``."""
+
+
+def start_state(cfg, params, d: V3, inside) -> PathState:
+    """The loop's state before depth 0. Every V3 but ``d`` is a (3, n)
+    buffer of its own, ``pos`` included, since the shade kernel updates them
+    in place (the eager twin replaces them)."""
+    n = d.x.shape[0]
+    dev = d.x.device
+
+    def zf():
+        return torch.zeros((n,), dtype=torch.float32, device=dev)
+
+    def vfull(value):
+        return V3(*torch.full((3, n), value, dtype=torch.float32,
+                              device=dev))
+
+    pos = V3(*params.camera_pos[:, None].expand(3, n).contiguous())
+    s = PathState(
+        pos=pos, d=d, tracing=inside,
+        contrib=vfull(0.0), throughput=vfull(1.0),
+        primary_normal_oct=(
+            torch.zeros((n,), dtype=torch.float16, device=dev),
+            torch.zeros((n,), dtype=torch.float16, device=dev)),
+        primary_pos=vfull(0.0),
+        primary_mat_info=torch.zeros((n,), dtype=torch.int64, device=dev),
+        primary_albedo=vfull(1.0),
+        first_bounce_lobe_id=torch.zeros((n,), dtype=torch.int32,
+                                         device=dev),
+        first_bounce_invpdf=torch.ones((n,), dtype=torch.float32,
+                                       device=dev),
+        first_nee_diffuse=vfull(0.0),
+        first_nee_specular=vfull(0.0),
+        first_bounce_dir=vfull(0.0),
+        first_light_sample_dir=vfull(0.0),
+        first_light_sample_bsdf_pdf=torch.ones((n,), dtype=torch.float32,
+                                               device=dev),
+        first_bounce_reflection_dist=zf(),
+        is_sky_ray=torch.zeros((n,), dtype=torch.bool, device=dev),
+        esc_dir=V3(zf(), torch.ones((n,), dtype=torch.float32, device=dev),
+                   zf()),
+        esc_u3=vfull(0.0),
+        esc_weight=vfull(0.0))
+    if cfg.use_restir_pt:
+        # ReSTIR-PT input-sample state (renderer/pathtracer.py:336-347,
+        # 381-391): the rc vertex and what arrives there.
+        s.rc = dict(rc_pos=v3.zeros(n, dev), rc_normal=v3.zeros(n, dev),
+                    rc_incident_dir=v3.zeros(n, dev),
+                    rc_incident_L=v3.zeros(n, dev),
+                    rc_NEE_dir=v3.zeros(n, dev),
+                    rc_mat_info=torch.zeros((n,), dtype=torch.int64,
+                                            device=dev))
+        s.throughput_after_rc = v3.ones(n, dev)
+        s.rc_bounce_lobe_id = torch.zeros((n,), dtype=torch.int32,
+                                          device=dev)
+    return s
+
+
+def shade_depth_eager(cfg, scene, params, depth, hit: Hit, knee_vis,
+                      s: PathState, u_nee, u_bsdf, u_sky: V3):
+    """One depth of the bounce loop's shading in eager PyTorch
+    (renderer/pathtracer.py:399-497): the depth's records, the escape and
+    emissive terminations, NEE against the sun cone and the next bounce's
+    BSDF sample with its MIS. Replaces the fields of ``s``. ``knee_vis``:
+    B1's in-kernel NEE verdicts, or None where the sun-shadow ray is
+    dispatched here. The plain twin of ``ops/shade_kernel.shade_depth``,
+    and the route of the CPU, ReSTIR, the sorted route, path A' and
+    ``nee_transmittance='per_ray'`` (``shade_kernel_applies``)."""
+    n = hit.closest.shape[0]
+    dev = hit.closest.device
+    restir = cfg.use_restir_pt
+    # The escape sky is deferred to one fetch after the bounce loop, except
+    # under ReSTIR, whose rc bookkeeping needs the sky at every depth.
+    defer_sky = not restir
+    use_nee = cfg.use_directional_light
+    use_knee = knee_vis is not None
+    pos, d, tracing = s.pos, s.d, s.tracing
+    throughput, contrib = s.throughput, s.contrib
+    rc = s.rc if restir else None
+
+    def zf():
+        return torch.zeros((n,), dtype=torch.float32, device=dev)
+
+    hit_mat = fetch_material(scene.mat_params, hit.mat_id, hit.albedo)
+    finite_closest = torch.isfinite(hit.closest)
+    hit_pos = pos + d * torch.where(finite_closest, hit.closest, 0.0)
+
+    if depth == 0:
+        oct_x, oct_y = packing.encode_unit_vector_3x16_soa(hit.normal)
+        s.primary_normal_oct = (
+            torch.where(tracing, oct_x, s.primary_normal_oct[0]),
+            torch.where(tracing, oct_y, s.primary_normal_oct[1]),
+        )
+        s.primary_pos = vwhere(tracing & finite_closest, hit_pos,
+                               s.primary_pos)
+        s.primary_mat_info = torch.where(
+            tracing,
+            packing.encode_material_soa(hit.mat_id, hit.albedo),
+            s.primary_mat_info)
+        s.primary_albedo = vwhere(tracing, hit.albedo, s.primary_albedo)
+    elif depth == 1:
+        add_refl = tracing & (s.first_bounce_lobe_id != LOBE_DIFFUSE)
+        s.first_bounce_reflection_dist = s.first_bounce_reflection_dist + \
+            torch.where(add_refl, torch.where(
+                finite_closest, hit.closest, SKY_REFLECTION_DIST), 0.0)
+        if restir:
+            # rc vertex capture (renderer/pathtracer.py:409-414).
+            rc["rc_pos"] = vwhere(tracing, hit_pos, rc["rc_pos"])
+            rc["rc_normal"] = vwhere(tracing, hit.normal,
+                                     rc["rc_normal"])
+            rc["rc_mat_info"] = torch.where(
+                tracing, packing.encode_material_soa(hit.mat_id,
+                                                     hit.albedo),
+                rc["rc_mat_info"])
+    elif depth == 2 and restir:
+        # renderer/pathtracer.py:416-417.
+        rc["rc_incident_dir"] = vwhere(tracing, d,
+                                       rc["rc_incident_dir"])
+
+    surf = tracing & ~hit.hit_light & finite_closest
+    term_sky = tracing & ~hit.hit_light & ~finite_closest
+    term_light = tracing & hit.hit_light & finite_closest
+
+    # --- miss -> sky (renderer/pathtracer.py:499-517)
+    if defer_sky:
+        # a ray escapes at most once: record the escape here, fetch the
+        # sky once after the bounce loop
+        s.esc_dir = vwhere(term_sky, d, s.esc_dir)
+        s.esc_u3 = vwhere(term_sky, u_sky, s.esc_u3)
+        s.esc_weight = vwhere(term_sky, throughput, s.esc_weight)
+    else:
+        sky_scatt, sky_trans = sample_sky(cfg, scene, params, d, u_sky)
+        sky_emission = _sky_emission(cfg, params, d, sky_scatt,
+                                     sky_trans)
+        contrib = contrib + vwhere(term_sky, throughput * sky_emission,
+                                   0.0)
+    if depth == 0:
+        s.is_sky_ray = term_sky
+        s.primary_pos = vwhere(term_sky, 0.0, s.primary_pos)
+    if restir and depth == 1:
+        # Escape at the rc vertex: rc_pos becomes a direction and
+        # rc_incident_L the sky colour
+        # (renderer/pathtracer.py:512-514).
+        rc["rc_pos"] = vwhere(term_sky, d, rc["rc_pos"])
+        rc["rc_incident_L"] = vwhere(term_sky, sky_emission,
+                                     rc["rc_incident_L"])
+    if restir and depth >= 2:
+        rc["rc_incident_L"] = rc["rc_incident_L"] + vwhere(
+            term_sky,
+            firefly_filter(s.throughput_after_rc * sky_emission, cfg),
+            0.0)
+
+    # --- emissive voxel/floor hit terminates (pathtracer.py:518-525)
+    if depth > 0:
+        contrib = contrib + vwhere(term_light, throughput * hit.albedo,
+                                   0.0)
+    if restir and depth >= 2:
+        rc["rc_incident_L"] = rc["rc_incident_L"] + vwhere(
+            term_light,
+            firefly_filter(s.throughput_after_rc * hit.albedo, cfg), 0.0)
+
+    s.tracing = surf
+
+    # --- surface shading (every depth incl. the last)
+    spos = hit_pos + hit.normal * EPS
+    view = -d
+    tang, bitang = make_orthonormal_basis(hit.normal)
+
+    nee_visible = zf()
+    if use_nee:
+        light_dir = sample_cone_oriented(
+            params.light_cone_cos_theta_max,
+            v3.broadcast(v3.splat(params.light_direction), n), u_nee)
+        ndl = dot(light_dir, hit.normal)
+        bsdf_d, bsdf_s, light_sample_bsdf_pdf = disney_eval_split_pdf(
+            hit_mat, view, hit.normal, light_dir, tang, bitang,
+            feat=mat_features(cfg))
+        if depth == 0:
+            s.first_light_sample_bsdf_pdf = torch.where(
+                surf, light_sample_bsdf_pdf,
+                s.first_light_sample_bsdf_pdf)
+
+        shadow_mask = surf & (ndl > 0.0)
+        if use_knee:
+            # kernel verdict covers voxel occlusion; the floor plane is
+            # a closed-form check (quirky extent bound included)
+            dyl = light_dir.y
+            fd = (params.floor_height - spos.y) / torch.where(
+                dyl == 0.0, 1e-20, dyl)
+            hpf = spos + light_dir * fd
+            floor_occ = (fd > EPS) & (length(hpf - hpf.y) < 10.0)
+            visible = shadow_mask & (knee_vis != 0) & ~floor_occ
+        else:
+            sh = next_hit(cfg, scene, params, spos, light_dir,
+                          shadow_mask, shadow_ray=True,
+                          sun_shadow=True)
+            visible = shadow_mask & ~torch.isfinite(sh.closest)
+        nee_visible = visible.to(torch.float32)
+
+        light_mis = torch.ones((), dtype=torch.float32, device=dev)
+        if depth > 0:
+            light_pdf = cone_sample_pdf(
+                params.light_cone_cos_theta_max, 1.0)
+            light_mis = power_heuristic(light_pdf,
+                                        light_sample_bsdf_pdf)
+
+        strans = nee_transmittance(cfg, scene, params, light_dir)
+        scale = ((light_mis * cfg.light_weight
+                  * torch.clamp(ndl, min=0.0))
+                 * v3.splat(params.light_color) * strans)
+        nee_d = bsdf_d * scale
+        nee_s = bsdf_s * scale
+        if depth == 0:
+            s.first_nee_diffuse = s.first_nee_diffuse + vwhere(
+                visible, firefly_filter(throughput * nee_d, cfg), 0.0)
+            s.first_nee_specular = s.first_nee_specular + vwhere(
+                visible, firefly_filter(throughput * nee_s, cfg), 0.0)
+        else:
+            contrib = contrib + vwhere(
+                visible,
+                firefly_filter(throughput * (nee_d + nee_s), cfg), 0.0)
+        if restir and depth == 1:
+            # renderer/pathtracer.py:454-455.
+            rc["rc_NEE_dir"] = vwhere(visible, light_dir,
+                                      rc["rc_NEE_dir"])
+        if restir and depth >= 2:
+            # renderer/pathtracer.py:475-476 (no firefly clamp here).
+            rc["rc_incident_L"] = rc["rc_incident_L"] + vwhere(
+                visible, s.throughput_after_rc * (nee_d + nee_s), 0.0)
+    s.contrib = contrib
+
+    # --- next bounce (renderer/pathtracer.py:479-497); none after the
+    # last depth.
+    if depth == cfg.max_ray_depth - 1:
+        return
+    new_d, bsdf, pdf, lobe = sample_disney(hit_mat, view, hit.normal,
+                                           tang, bitang, u_bsdf,
+                                           feat=mat_features(cfg))
+    bounce_weight = bsdf * saturate(dot(new_d, hit.normal))
+    if depth == 0:
+        s.first_bounce_invpdf = torch.where(surf, 1.0 / pdf,
+                                            s.first_bounce_invpdf)
+        s.first_bounce_lobe_id = torch.where(surf, lobe,
+                                             s.first_bounce_lobe_id)
+        s.first_bounce_dir = vwhere(surf, new_d, s.first_bounce_dir)
+        if use_nee:
+            s.first_light_sample_dir = vwhere(surf, light_dir, 0.0)
+    else:
+        bounce_weight = bounce_weight / pdf
+        bsdf_light_pdf = cone_sample_pdf(
+            params.light_cone_cos_theta_max,
+            dot(v3.splat(params.light_direction), new_d))
+        bounce_weight = bounce_weight * power_heuristic(
+            pdf, nee_visible * bsdf_light_pdf)
+    if restir and depth == 1:
+        s.rc_bounce_lobe_id = torch.where(surf, lobe, s.rc_bounce_lobe_id)
+    if restir and depth >= 2:
+        s.throughput_after_rc = vwhere(
+            surf, s.throughput_after_rc * bounce_weight,
+            s.throughput_after_rc)
+    s.throughput = vwhere(surf, throughput * bounce_weight, throughput)
+    s.d = vwhere(surf, new_d, d)
+    s.pos = vwhere(surf, spos, pos)
+
+
+def center_transmittance(cfg, scene, params):
+    """The shade kernel's NEE transmittance: the cone centre's as a (3,)
+    tensor (the 1-lane B3 fetch that ``shade_depth_eager`` makes at every
+    depth, fetched once), or None under a flat sky or without a sun."""
+    if not (cfg.use_directional_light and cfg.use_physical_sky):
+        return None
+    return v3.stack(sky_transmittance(cfg, scene,
+                                      _light_dir_1(params))).reshape(3)
+
+
 def trace_sample(cfg, scene, params, u, v, sample_keys, jitter_u,
                  camera_is_moving: bool = False, render_scale: float = 1.0):
     """Trace one progressive sample for rays at pixels (u, v) — the
@@ -430,53 +717,31 @@ def trace_sample(cfg, scene, params, u, v, sample_keys, jitter_u,
     int64 tensors); ``jitter_u``: the (u0, u1) TAA jitter uniforms of each
     ray's sample. Returns a dict of per-ray outputs; with ``use_restir_pt``
     also ``reservoir``, the input reservoir of each ray as a dict of packed
-    tensors (the render/restir.py boundary)."""
+    tensors (the render/restir.py boundary).
+
+    Each depth's shading runs as one launch of the shade kernel where
+    ``shade_kernel_applies``, else as ``shade_depth_eager``."""
     n = u.shape[0]
     dev = u.device
     restir = cfg.use_restir_pt
-
-    def zf():
-        return torch.zeros((n,), dtype=torch.float32, device=dev)
+    on_card = shade_kernel_applies(cfg, dev)
+    use_nee = cfg.use_directional_light
+    # In-kernel NEE: the traversal kernel itself traces each surface's
+    # sun-cone shadow ray, replacing the separate any-hit dispatch per depth
+    # (pathtracer.py:600-602, with use_pallas_dda read as True). ReSTIR
+    # keeps the explicit dispatches, and the sorted route has no NEE.
+    use_knee = (cfg.nee_in_kernel and use_nee and not restir
+                and not cfg.sort_rays)
 
     with profiling.span("sample.raygen"):
         d = get_cast_dir(cfg, params, u, v, camera_is_moving, render_scale,
                          jitter_u)
-        pos = v3.broadcast(v3.splat(params.camera_pos), n)
 
         # is_outside_render_area (renderer/pathtracer.py:289-291).
         inside = ~((u > render_scale * cfg.image_res[0])
                    | (v > render_scale * cfg.image_res[1]))
-
-        contrib = v3.zeros(n, dev)
-        throughput = v3.ones(n, dev)
-
-        primary_normal_oct = (
-            torch.zeros((n,), dtype=torch.float16, device=dev),
-            torch.zeros((n,), dtype=torch.float16, device=dev))
-        primary_pos = v3.zeros(n, dev)
-        primary_mat_info = torch.zeros((n,), dtype=torch.int64, device=dev)
-        primary_albedo = v3.ones(n, dev)
-
-        first_bounce_lobe_id = torch.zeros((n,), dtype=torch.int32, device=dev)
-        first_bounce_invpdf = torch.ones((n,), dtype=torch.float32, device=dev)
-        first_nee_diffuse = v3.zeros(n, dev)
-        first_nee_specular = v3.zeros(n, dev)
-        first_bounce_dir = v3.zeros(n, dev)
-        first_light_sample_dir = v3.zeros(n, dev)
-        first_light_sample_bsdf_pdf = torch.ones((n,), dtype=torch.float32,
-                                                 device=dev)
-        first_bounce_reflection_dist = zf()
-        is_sky_ray = torch.zeros((n,), dtype=torch.bool, device=dev)
-
-        # The escape sky is deferred to one fetch after the bounce loop, except
-        # under ReSTIR, whose rc bookkeeping needs the sky at every depth.
-        defer_sky = not restir
-        esc_dir = V3(zf(), torch.ones((n,), dtype=torch.float32, device=dev),
-                     zf())
-        esc_u3 = v3.zeros(n, dev)
-        esc_weight = v3.zeros(n, dev)
-
-        tracing = inside
+        s = start_state(cfg, params, d, inside)
+        strans = center_transmittance(cfg, scene, params) if on_card else None
 
         # Counter-based per-pixel RNG: every uniform is a pure function of
         # (global pixel id, sample key, draw slot).
@@ -488,26 +753,6 @@ def trace_sample(cfg, scene, params, u, v, sample_keys, jitter_u,
             draws = draw_table(cfg, kd)
         del kd
 
-        # ReSTIR-PT input-sample state (renderer/pathtracer.py:336-347,
-        # 381-391): the rc vertex and what arrives there.
-        if restir:
-            rc = dict(rc_pos=v3.zeros(n, dev), rc_normal=v3.zeros(n, dev),
-                      rc_incident_dir=v3.zeros(n, dev),
-                      rc_incident_L=v3.zeros(n, dev),
-                      rc_NEE_dir=v3.zeros(n, dev),
-                      rc_mat_info=torch.zeros((n,), dtype=torch.int64,
-                                              device=dev))
-            throughput_after_rc = v3.ones(n, dev)
-            rc_bounce_lobe_id = torch.zeros((n,), dtype=torch.int32,
-                                            device=dev)
-
-    use_nee = cfg.use_directional_light
-    # In-kernel NEE: the traversal kernel itself traces each surface's
-    # sun-cone shadow ray, replacing the separate any-hit dispatch per depth
-    # (pathtracer.py:600-602, with use_pallas_dda read as True). ReSTIR
-    # keeps the explicit dispatches, and the sorted route has no NEE.
-    use_knee = (cfg.nee_in_kernel and use_nee and not restir
-                and not cfg.sort_rays)
     for depth in range(cfg.max_ray_depth):
         base = 8 * depth
         profiling.count("sample.lanes", n, depth=depth)
@@ -517,237 +762,69 @@ def trace_sample(cfg, scene, params, u, v, sample_keys, jitter_u,
             u_sky = V3(draws[base + 5], draws[base + 6], draws[base + 7])
 
         with profiling.span("sample.hit", depth=depth):
+            knee_vis = None
             if use_knee:
-                hit, knee_vis = next_hit(cfg, scene, params, pos, d, tracing,
-                                         nee_u=u_nee, coherent=depth == 0)
+                hit, knee_vis = next_hit(cfg, scene, params, s.pos, s.d,
+                                         s.tracing, nee_u=u_nee,
+                                         coherent=depth == 0)
             else:
-                hit = next_hit(cfg, scene, params, pos, d, tracing,
+                hit = next_hit(cfg, scene, params, s.pos, s.d, s.tracing,
                                coherent=depth == 0)
         with profiling.span("sample.shade", depth=depth):
-            hit_mat = fetch_material(scene.mat_params, hit.mat_id, hit.albedo)
-            finite_closest = torch.isfinite(hit.closest)
-            hit_pos = pos + d * torch.where(finite_closest, hit.closest, 0.0)
-
-            if depth == 0:
-                oct_x, oct_y = packing.encode_unit_vector_3x16_soa(hit.normal)
-                primary_normal_oct = (
-                    torch.where(tracing, oct_x, primary_normal_oct[0]),
-                    torch.where(tracing, oct_y, primary_normal_oct[1]),
-                )
-                primary_pos = vwhere(tracing & finite_closest, hit_pos,
-                                     primary_pos)
-                primary_mat_info = torch.where(
-                    tracing,
-                    packing.encode_material_soa(hit.mat_id, hit.albedo),
-                    primary_mat_info)
-                primary_albedo = vwhere(tracing, hit.albedo, primary_albedo)
-            elif depth == 1:
-                add_refl = tracing & (first_bounce_lobe_id != LOBE_DIFFUSE)
-                first_bounce_reflection_dist = first_bounce_reflection_dist + \
-                    torch.where(add_refl, torch.where(
-                        finite_closest, hit.closest, SKY_REFLECTION_DIST), 0.0)
-                if restir:
-                    # rc vertex capture (renderer/pathtracer.py:409-414).
-                    rc["rc_pos"] = vwhere(tracing, hit_pos, rc["rc_pos"])
-                    rc["rc_normal"] = vwhere(tracing, hit.normal,
-                                             rc["rc_normal"])
-                    rc["rc_mat_info"] = torch.where(
-                        tracing, packing.encode_material_soa(hit.mat_id,
-                                                             hit.albedo),
-                        rc["rc_mat_info"])
-            elif depth == 2 and restir:
-                # renderer/pathtracer.py:416-417.
-                rc["rc_incident_dir"] = vwhere(tracing, d,
-                                               rc["rc_incident_dir"])
-
-            surf = tracing & ~hit.hit_light & finite_closest
-            term_sky = tracing & ~hit.hit_light & ~finite_closest
-            term_light = tracing & hit.hit_light & finite_closest
-
-            # --- miss -> sky (renderer/pathtracer.py:499-517)
-            if defer_sky:
-                # a ray escapes at most once: record the escape here, fetch the
-                # sky once after the bounce loop
-                esc_dir = vwhere(term_sky, d, esc_dir)
-                esc_u3 = vwhere(term_sky, u_sky, esc_u3)
-                esc_weight = vwhere(term_sky, throughput, esc_weight)
+            if on_card:
+                shade_kernel.shade_depth(cfg, params, scene.mat_params,
+                                         depth, hit, knee_vis, s, u_nee,
+                                         u_bsdf, u_sky, strans,
+                                         mat_features(cfg))
             else:
-                sky_scatt, sky_trans = sample_sky(cfg, scene, params, d, u_sky)
-                sky_emission = _sky_emission(cfg, params, d, sky_scatt,
-                                             sky_trans)
-                contrib = contrib + vwhere(term_sky, throughput * sky_emission,
-                                           0.0)
-            if depth == 0:
-                is_sky_ray = term_sky
-                primary_pos = vwhere(term_sky, 0.0, primary_pos)
-            if restir and depth == 1:
-                # Escape at the rc vertex: rc_pos becomes a direction and
-                # rc_incident_L the sky colour
-                # (renderer/pathtracer.py:512-514).
-                rc["rc_pos"] = vwhere(term_sky, d, rc["rc_pos"])
-                rc["rc_incident_L"] = vwhere(term_sky, sky_emission,
-                                             rc["rc_incident_L"])
-            if restir and depth >= 2:
-                rc["rc_incident_L"] = rc["rc_incident_L"] + vwhere(
-                    term_sky,
-                    firefly_filter(throughput_after_rc * sky_emission, cfg),
-                    0.0)
-
-            # --- emissive voxel/floor hit terminates (pathtracer.py:518-525)
-            if depth > 0:
-                contrib = contrib + vwhere(term_light, throughput * hit.albedo,
-                                           0.0)
-            if restir and depth >= 2:
-                rc["rc_incident_L"] = rc["rc_incident_L"] + vwhere(
-                    term_light,
-                    firefly_filter(throughput_after_rc * hit.albedo, cfg), 0.0)
-
-            tracing = surf
-
-            # --- surface shading (every depth incl. the last)
-            spos = hit_pos + hit.normal * EPS
-            view = -d
-            tang, bitang = make_orthonormal_basis(hit.normal)
-
-            nee_visible = zf()
-            if use_nee:
-                light_dir = sample_cone_oriented(
-                    params.light_cone_cos_theta_max,
-                    v3.broadcast(v3.splat(params.light_direction), n), u_nee)
-                ndl = dot(light_dir, hit.normal)
-                bsdf_d, bsdf_s, light_sample_bsdf_pdf = disney_eval_split_pdf(
-                    hit_mat, view, hit.normal, light_dir, tang, bitang,
-                    feat=mat_features(cfg))
-                if depth == 0:
-                    first_light_sample_bsdf_pdf = torch.where(
-                        surf, light_sample_bsdf_pdf,
-                        first_light_sample_bsdf_pdf)
-
-                shadow_mask = surf & (ndl > 0.0)
-                if use_knee:
-                    # kernel verdict covers voxel occlusion; the floor plane is
-                    # a closed-form check (quirky extent bound included)
-                    dyl = light_dir.y
-                    fd = (params.floor_height - spos.y) / torch.where(
-                        dyl == 0.0, 1e-20, dyl)
-                    hpf = spos + light_dir * fd
-                    floor_occ = (fd > EPS) & (length(hpf - hpf.y) < 10.0)
-                    visible = shadow_mask & (knee_vis != 0) & ~floor_occ
-                else:
-                    sh = next_hit(cfg, scene, params, spos, light_dir,
-                                  shadow_mask, shadow_ray=True,
-                                  sun_shadow=True)
-                    visible = shadow_mask & ~torch.isfinite(sh.closest)
-                nee_visible = visible.to(torch.float32)
-
-                light_mis = torch.ones((), dtype=torch.float32, device=dev)
-                if depth > 0:
-                    light_pdf = cone_sample_pdf(
-                        params.light_cone_cos_theta_max, 1.0)
-                    light_mis = power_heuristic(light_pdf,
-                                                light_sample_bsdf_pdf)
-
-                strans = nee_transmittance(cfg, scene, params, light_dir)
-                scale = ((light_mis * cfg.light_weight
-                          * torch.clamp(ndl, min=0.0))
-                         * v3.splat(params.light_color) * strans)
-                nee_d = bsdf_d * scale
-                nee_s = bsdf_s * scale
-                if depth == 0:
-                    first_nee_diffuse = first_nee_diffuse + vwhere(
-                        visible, firefly_filter(throughput * nee_d, cfg), 0.0)
-                    first_nee_specular = first_nee_specular + vwhere(
-                        visible, firefly_filter(throughput * nee_s, cfg), 0.0)
-                else:
-                    contrib = contrib + vwhere(
-                        visible,
-                        firefly_filter(throughput * (nee_d + nee_s), cfg), 0.0)
-                if restir and depth == 1:
-                    # renderer/pathtracer.py:454-455.
-                    rc["rc_NEE_dir"] = vwhere(visible, light_dir,
-                                              rc["rc_NEE_dir"])
-                if restir and depth >= 2:
-                    # renderer/pathtracer.py:475-476 (no firefly clamp here).
-                    rc["rc_incident_L"] = rc["rc_incident_L"] + vwhere(
-                        visible, throughput_after_rc * (nee_d + nee_s), 0.0)
-
-            # --- next bounce (renderer/pathtracer.py:479-497); none after the
-            # last depth.
-            if depth == cfg.max_ray_depth - 1:
-                break
-            new_d, bsdf, pdf, lobe = sample_disney(hit_mat, view, hit.normal,
-                                                   tang, bitang, u_bsdf,
-                                                   feat=mat_features(cfg))
-            bounce_weight = bsdf * saturate(dot(new_d, hit.normal))
-            if depth == 0:
-                first_bounce_invpdf = torch.where(surf, 1.0 / pdf,
-                                                  first_bounce_invpdf)
-                first_bounce_lobe_id = torch.where(surf, lobe,
-                                                   first_bounce_lobe_id)
-                first_bounce_dir = vwhere(surf, new_d, first_bounce_dir)
-                if use_nee:
-                    first_light_sample_dir = vwhere(surf, light_dir, 0.0)
-            else:
-                bounce_weight = bounce_weight / pdf
-                bsdf_light_pdf = cone_sample_pdf(
-                    params.light_cone_cos_theta_max,
-                    dot(v3.splat(params.light_direction), new_d))
-                bounce_weight = bounce_weight * power_heuristic(
-                    pdf, nee_visible * bsdf_light_pdf)
-            if restir and depth == 1:
-                rc_bounce_lobe_id = torch.where(surf, lobe, rc_bounce_lobe_id)
-            if restir and depth >= 2:
-                throughput_after_rc = vwhere(
-                    surf, throughput_after_rc * bounce_weight,
-                    throughput_after_rc)
-            throughput = vwhere(surf, throughput * bounce_weight, throughput)
-            d = vwhere(surf, new_d, d)
-            pos = vwhere(surf, spos, pos)
+                shade_depth_eager(cfg, scene, params, depth, hit, knee_vis,
+                                  s, u_nee, u_bsdf, u_sky)
     # the NEE sample's WRS uniform, the slot after the bounce loop's
     u_wrs = draws[8 * cfg.max_ray_depth] if restir and use_nee else None
     del draws
 
-    if defer_sky:
+    if not restir:
         # --- deferred escape sky (single fetch for the whole bounce loop)
         with profiling.span("sample.sky"):
-            esc_any = v3.any_nonzero(esc_weight)
+            esc_any = v3.any_nonzero(s.esc_weight)
             # the cone-centre transmittance stands in for the per-ray map
             # inside the sun disk (config.nee_transmittance='center')
             cheap_sun_trans = (cfg.nee_transmittance == "center"
                                and cfg.use_physical_sky)
-            sky_scatt, sky_trans = sample_sky(cfg, scene, params, esc_dir,
-                                              esc_u3,
+            sky_scatt, sky_trans = sample_sky(cfg, scene, params, s.esc_dir,
+                                              s.esc_u3,
                                               want_trans=not cheap_sun_trans)
             if sky_trans is None:
                 sky_trans = sky_transmittance(cfg, scene, _light_dir_1(params))
-            sky_emission = _sky_emission(cfg, params, esc_dir, sky_scatt,
+            sky_emission = _sky_emission(cfg, params, s.esc_dir, sky_scatt,
                                          sky_trans)
-            contrib = contrib + vwhere(esc_any, esc_weight * sky_emission, 0.0)
+            s.contrib = s.contrib + vwhere(esc_any,
+                                           s.esc_weight * sky_emission, 0.0)
 
     # --- epilogue (renderer/pathtracer.py:535-632) ---------------------------
     with profiling.span("sample.epilogue"):
-        primary_pos_view = world_to_view_soa(primary_pos, params.view)
+        primary_pos_view = world_to_view_soa(s.primary_pos, params.view)
         gbuff_depth = view_to_screen_z_soa(primary_pos_view, params.proj)
 
-        primary_dir = normalize(primary_pos - v3.splat(params.camera_pos))
-        virtual_point = (primary_pos
-                         + primary_dir * first_bounce_reflection_dist)
+        primary_dir = normalize(s.primary_pos - v3.splat(params.camera_pos))
+        virtual_point = (s.primary_pos
+                         + primary_dir * s.first_bounce_reflection_dist)
         refl_depth = view_to_screen_z_soa(
             world_to_view_soa(virtual_point, params.view), params.proj)
         gbuff_depth_reflection = torch.where(
-            first_bounce_reflection_dist != 0.0,
+            s.first_bounce_reflection_dist != 0.0,
             linearize_depth(refl_depth, params.proj_inv), 0.0)
 
         # Primary-vertex MIS (renderer/pathtracer.py:556-605).
-        nee_d_out = first_nee_diffuse
-        nee_s_out = first_nee_specular
+        nee_d_out = s.first_nee_diffuse
+        nee_s_out = s.first_nee_specular
         chose_nee = torch.zeros((n,), dtype=torch.bool, device=dev)
         if use_nee:
             light_pdf_one = cone_sample_pdf(params.light_cone_cos_theta_max,
                                             1.0)
             light_sample_mis = power_heuristic(light_pdf_one,
-                                               first_light_sample_bsdf_pdf)
-            apply = ~is_sky_ray
+                                               s.first_light_sample_bsdf_pdf)
+            apply = ~s.is_sky_ray
             if not restir:
                 nee_d_out = vwhere(apply, nee_d_out * light_sample_mis,
                                    nee_d_out)
@@ -759,24 +836,25 @@ def trace_sample(cfg, scene, params, u, v, sample_keys, jitter_u,
             # path sample through its rc vertex, merged by WRS with the primary
             # vertex's NEE sample when there is a sun, then finalized; packed
             # at the render/restir.py boundary.
-            z = dict(rc)
-            z["F"] = contrib
-            z["lobes"] = rc_bounce_lobe_id * 10 + first_bounce_lobe_id
-            dir_x1x2 = z["rc_pos"] - primary_pos
+            z = dict(s.rc)
+            z["F"] = s.contrib
+            z["lobes"] = s.rc_bounce_lobe_id * 10 + s.first_bounce_lobe_id
+            dir_x1x2 = z["rc_pos"] - s.primary_pos
             denom = torch.abs(dot(normalize(dir_x1x2), z["rc_normal"]))
             z["cached_jacobian_term"] = dot(dir_x1x2, dir_x1x2) / torch.clamp(
                 denom, min=1e-20)
             res_m = torch.ones((n,), dtype=torch.float32, device=dev)
-            nee_f = first_nee_diffuse + first_nee_specular
+            nee_f = s.first_nee_diffuse + s.first_nee_specular
             if use_nee:
-                bsdf_pdf0 = 1.0 / first_bounce_invpdf
+                bsdf_pdf0 = 1.0 / s.first_bounce_invpdf
                 bsdf_light_pdf0 = cone_sample_pdf(
                     params.light_cone_cos_theta_max,
-                    dot(v3.splat(params.light_direction), first_bounce_dir))
+                    dot(v3.splat(params.light_direction), s.first_bounce_dir))
                 bsdf_light_pdf0 = torch.where(is_vec_zero(nee_f), 0.0,
                                               bsdf_light_pdf0)
                 bsdf_mis = power_heuristic(bsdf_pdf0, bsdf_light_pdf0)
-                res_weight = bsdf_mis * luminance(z["F"]) * first_bounce_invpdf
+                res_weight = (bsdf_mis * luminance(z["F"])
+                              * s.first_bounce_invpdf)
                 light_sample_weight = light_sample_mis * luminance(nee_f)
                 # WRS input of the NEE sample (renderer/pathtracer.py:588-598,
                 # reservoir.py:65-74).
@@ -785,10 +863,10 @@ def trace_sample(cfg, scene, params, u, v, sample_keys, jitter_u,
                     u_wrs * new_weight <= light_sample_weight)
                 sel = sel & apply
                 strans0 = nee_transmittance(cfg, scene, params,
-                                            first_light_sample_dir)
+                                            s.first_light_sample_dir)
                 zero3 = v3.zeros(n, dev)
                 light_z = dict(
-                    F=nee_f, rc_pos=first_light_sample_dir, rc_normal=zero3,
+                    F=nee_f, rc_pos=s.first_light_sample_dir, rc_normal=zero3,
                     rc_incident_dir=zero3,
                     rc_incident_L=strans0 * cfg.light_weight
                     * v3.splat(params.light_color),
@@ -806,7 +884,7 @@ def trace_sample(cfg, scene, params, u, v, sample_keys, jitter_u,
                 res_m = torch.where(apply, 2.0, res_m)  # input_sample: M += 1
                 chose_nee = sel
             else:
-                res_weight = luminance(z["F"]) * first_bounce_invpdf
+                res_weight = luminance(z["F"]) * s.first_bounce_invpdf
             # finalize_without_M (reservoir.py:96-102) for non-sky rays.
             p_hat_final = luminance(z["F"])
             fin = torch.where(p_hat_final < 1e-6, 0.0,
@@ -814,44 +892,44 @@ def trace_sample(cfg, scene, params, u, v, sample_keys, jitter_u,
             reservoir = {k: (v3.stack(x) if isinstance(x, V3) else x)
                          for k, x in z.items()}
             reservoir["M"] = res_m
-            reservoir["weight"] = torch.where(is_sky_ray, 1.0, fin)
+            reservoir["weight"] = torch.where(s.is_sky_ray, 1.0, fin)
 
         prim_mat_id, prim_albedo_dec = packing.decode_material_word_soa(
-            primary_mat_info)
+            s.primary_mat_info)
         emission = vwhere(prim_mat_id == 2, prim_albedo_dec, 0.0)
 
-        lobe_diff = first_bounce_lobe_id == LOBE_DIFFUSE
-        lobe_spec = first_bounce_lobe_id == LOBE_SPEC_REFL
+        lobe_diff = s.first_bounce_lobe_id == LOBE_DIFFUSE
+        lobe_spec = s.first_bounce_lobe_id == LOBE_SPEC_REFL
         if not restir:
             diffuse = vwhere(lobe_diff,
-                             contrib * first_bounce_invpdf + emission,
+                             s.contrib * s.first_bounce_invpdf + emission,
                              0.0) + nee_d_out
-            specular = vwhere(lobe_spec, contrib * first_bounce_invpdf,
+            specular = vwhere(lobe_spec, s.contrib * s.first_bounce_invpdf,
                               0.0) + nee_s_out
         else:
             # renderer/pathtracer.py:620-626: the chosen input sample's
             # integrand, unweighted (the GRIS pass applies the weight).
             res_f = v3.load(reservoir["F"])
-            diffuse = vwhere(chose_nee, first_nee_diffuse,
+            diffuse = vwhere(chose_nee, s.first_nee_diffuse,
                              vwhere(lobe_diff, res_f, 0.0))
-            specular = vwhere(chose_nee, first_nee_specular,
+            specular = vwhere(chose_nee, s.first_nee_specular,
                               vwhere(lobe_spec, res_f, 0.0))
 
         if camera_is_moving and not restir:
             # De-modulate albedo so temporal filtering works on irradiance
             # (renderer/pathtracer.py:628-631; under ReSTIR the GRIS pass
             # demodulates).
-            diffuse = diffuse / v3.vmaximum(primary_albedo, 1e-2)
+            diffuse = diffuse / v3.vmaximum(s.primary_albedo, 1e-2)
 
         out = dict(
             diffuse=diffuse,
             specular=specular,
             inside=inside,
-            gbuff_normals=primary_normal_oct,
+            gbuff_normals=s.primary_normal_oct,
             gbuff_depth=gbuff_depth,
             gbuff_depth_reflection=gbuff_depth_reflection,
-            gbuff_position=primary_pos,
-            gbuff_mat_id=primary_mat_info,
+            gbuff_position=s.primary_pos,
+            gbuff_mat_id=s.primary_mat_info,
         )
         if restir:
             out["reservoir"] = reservoir
