@@ -1,21 +1,22 @@
 """What anchors the plain reference to the truth. ``benchmark/reference`` is
 a frozen copy of the port's plain twins, so a run that equals it is only as
 right as the port was when it was copied. Here the reference itself is held
-to the JAX package's goldens of the two cells' scenes
-(``tests/golden/torch_fullres/<example>_1280x720_16spp.png``: example6 and
-example9 rendered by the JAX package on the CPU at 1280x720, one launch of
-16 samples from the Scene's default seed 0), on pixels drawn from a fixed
-seed. Nothing here imports JAX or the JAX package; the goldens are read as
-PNG files.
+to the JAX package's goldens of the cells' scenes
+(``tests/golden/torch_fullres/<example>_<W>x<H>_16spp.png``: example6 and
+example9 rendered by the JAX package on the CPU at 1280x720, and example6
+at 1920x1080, one launch of 16 samples from the Scene's default seed 0), on
+pixels drawn from a fixed seed. Nothing here imports JAX or the JAX
+package; the goldens are read as PNG files.
 
 The reference's image is rounded to 8 bits as the golden's PNG was, and
 held to it on 16,384 pixels: an RMSE under ``RMSE_BAR`` and at least
 ``WITHIN_BAR`` of the pixels within 2/255 in every channel. Readings on the
 CPU: RMSE 0.00081 (example6: isolated samples that flip between the JAX
 package's float32 sky maps and the bf16 words the port keeps) and 0.00032
-(example9: B1's edge ties); with the reference's HDR made 1% brighter,
-0.0029 and 0.0032; 3% brighter, 0.0068 and 0.0079, and 84% and 71% of
-the pixels within 2/255. So a bias of 1% in the reference fails here."""
+(example9: B1's edge ties) at 1280x720, 0.00083 (example6) at 1920x1080;
+with the reference's HDR made 1% brighter, 0.0029, 0.0032 and 0.0029; 3%
+brighter, 0.0068, 0.0079 and 0.0068, and 84%, 71% and 84% of the pixels
+within 2/255. So a bias of 1% in the reference fails here."""
 
 import os
 
@@ -26,28 +27,28 @@ import torch
 from benchmark.tests.cells import ROOT
 
 GOLDEN_DIR = os.path.join(ROOT, "tests", "golden", "torch_fullres")
-RES = (1280, 720)
 SPP = 16
 PIXELS = 16384
 RMSE_BAR = 0.0018
 WITHIN_BAR = 0.99
 
 
-def _golden(example):
+def _golden(example, res):
     from voxelrt_torch.utils.image import read_png
 
-    return read_png(os.path.join(GOLDEN_DIR, f"{example}_1280x720_16spp.png"))
+    return read_png(os.path.join(
+        GOLDEN_DIR, f"{example}_{res[0]}x{res[1]}_{SPP}spp.png"))
 
 
-def reference_image(example, pixels):
+def reference_image(example, pixels, res):
     """The reference's tonemapped colour of ``pixels`` (flat ids x * H + y)
     for the golden's render: the example's default render settings at
-    ``RES``, one launch of ``SPP`` samples keyed as the Scene's first
+    ``res``, one launch of ``SPP`` samples keyed as the Scene's first
     launch from seed 0, from an empty history."""
     from benchmark.reference import render, scene as rscene
 
     rec = rscene.record_example(rscene.examples_dir(ROOT), example)
-    cfg = render.make_config({}, RES, SPP)
+    cfg = render.make_config({}, res, SPP)
     cfg, sd, params = render.prepare(
         cfg, rec, os.path.join(ROOT, "data", "skycache"), "cpu")
     keys = render.chunk_launch_keys(render.render_key(0), 0, 1)
@@ -57,17 +58,21 @@ def reference_image(example, pixels):
     return ldr.numpy()
 
 
-@pytest.mark.parametrize("example", ["example6", "example9"])
-def test_reference_meets_the_jax_golden(example):
-    golden = _golden(example)
-    assert golden.shape == (RES[0], RES[1], 3)
+@pytest.mark.parametrize("example,res", [
+    pytest.param("example6", (1280, 720), id="example6"),
+    pytest.param("example9", (1280, 720), id="example9"),
+    pytest.param("example6", (1920, 1080), id="example6-1920x1080"),
+])
+def test_reference_meets_the_jax_golden(example, res):
+    golden = _golden(example, res)
+    assert golden.shape == (res[0], res[1], 3)
     rng = np.random.default_rng(20261018)
-    pixels = np.sort(rng.choice(RES[0] * RES[1], size=PIXELS, replace=False))
-    ref = reference_image(example, pixels)
+    pixels = np.sort(rng.choice(res[0] * res[1], size=PIXELS, replace=False))
+    ref = reference_image(example, pixels, res)
     gold = golden.reshape(-1, 3)[pixels]
     # rounded to 8 bits as the golden's PNG was written
     ref8 = np.floor(np.clip(ref, 0.0, 1.0) * 255.0 + 0.5) / 255.0
     rmse = float(np.sqrt(np.mean((ref8 - gold) ** 2)))
     within = float((np.abs(ref8 - gold).max(-1) <= 2 / 255 + 1e-6).mean())
-    print(f"{example}: RMSE {rmse:.6f}, within 2/255 {within:.4f}")
+    print(f"{example} {res}: RMSE {rmse:.6f}, within 2/255 {within:.4f}")
     assert rmse < RMSE_BAR and within >= WITHIN_BAR, (rmse, within)

@@ -17,9 +17,9 @@ import torch
 
 from benchmark.harness import check, runner
 from benchmark.harness.progressive_still import Run
-from benchmark.tests.cells import tiny_cell
+from benchmark.tests.cells import cells_of_kind, tiny_cell
 
-CELLS = ("example6-still-720p", "example9-still-1080p")
+CELLS = cells_of_kind("progressive_still")
 
 
 @pytest.mark.parametrize("name", CELLS)

@@ -74,6 +74,17 @@ def test_benchmark_json_keeps_to_the_contract():
         assert w["chips"] in (1, 4) and len(w["why"]) <= 200
 
 
+def test_every_per_layer_metric_lists_its_cells():
+    """Every per-layer metric names the cells it is read in, each a
+    workload of the file, so that a later cell joins only the lists it
+    names."""
+    cells = {w["name"] for w in BENCH["workloads"]}
+    for m in BENCH["per_layer"]:
+        assert m.get("workloads"), m["name"]
+        assert len(m["workloads"]) == len(set(m["workloads"])), m["name"]
+        assert set(m["workloads"]) <= cells, m["name"]
+
+
 @pytest.mark.parametrize("name", [w["name"] for w in BENCH["workloads"]])
 def test_every_cell_finds_its_files(name):
     cell = spec.cell(name)

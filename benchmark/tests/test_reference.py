@@ -9,9 +9,9 @@ import numpy as np
 import pytest
 
 from benchmark.harness import runner
-from benchmark.tests.cells import ROOT, tiny_cell
+from benchmark.tests.cells import ROOT, cells_of_kind, tiny_cell
 
-CELLS = ("example6-still-720p", "example9-still-1080p")
+CELLS = cells_of_kind("progressive_still")
 
 
 @pytest.mark.parametrize("name", ["example6", "example9"])
@@ -33,9 +33,15 @@ def test_recorded_scene_is_the_programs(name):
     assert rec.exposure == sc.config.exposure
 
 
-@pytest.mark.parametrize("name", CELLS)
-def test_program_equals_reference(name):
-    cell = tiny_cell(name)
+@pytest.mark.parametrize("name,traffic", [
+    *(pytest.param(n, {}, id=n) for n in CELLS),
+    # one sample a launch, the RenderConfig default: every launch's resolve
+    # blends a single sample
+    pytest.param(CELLS[0], {"samples_per_launch": 1},
+                 id="one-sample-launches"),
+])
+def test_program_equals_reference(name, traffic):
+    cell = tiny_cell(name, **traffic)
     result, lines = runner.run(cell, 2 ** 31 + 977, 0.0, False, "cpu",
                                time.perf_counter())
     assert result["correct"], lines
