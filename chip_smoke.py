@@ -31,7 +31,10 @@ S against its twin ``shade_depth_eager`` on the main path's own state at
 each depth (one more launch of the main path's renderer on the eager route
 a depth, ``tools/shade_kernel_torch.py`` ``run_depth``: each output by its
 bits, at most 0.1% of the lanes off and by 1e-5 relative at most, the
-lanes that do not trace left as they were), 8 a
+lanes that do not trace left as they were), 7c kernel D against
+``fold_in`` then ``Pcg3dDraws`` by bits on the main path's own lanes and
+keys at 14,745,600 and 33,177,600 lanes, every slot 0-32, with a depth's
+launch timed beside its byte bound, 8 a
 small-render check of the card path against the CPU
 path; 9 the moving path (24 moving frames at 640x360 active, then 6 still
 frames, counters set to 0 just before and read just after, B4's routes
@@ -701,6 +704,76 @@ def b3_check(name, args, kw, reps=10):
                 device_ms=device_ms(call, reps), plain_ms=cuda_ms(plain, 3),
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_draws(r, sizes=((1280, 720), (1920, 1080))):
+    """Phase 7c: kernel D against ``fold_in`` then ``Pcg3dDraws`` by bits on
+    the main path's own lanes and keys (the wavefront of a 16-sample launch
+    of ``r``'s config and the sample keys of its first launch), at each of
+    ``sizes``, on ``r``'s device, for every slot the sample reads: one
+    launch of all the slots, each row against the eager slot, and the
+    route's launches (8 slots a depth, then ReSTIR's slot) against its
+    rows. Then a depth's
+    launch on the card (``device_ms``) and with its wrapper, its byte bound
+    (each lane's pixel and key read once, its 8 uniforms written once) and
+    the eager fold and hash of the same 8 slots."""
+    import torch
+
+    from voxelrt_torch.ops import draws_kernel, prng
+    from voxelrt_torch.render import pathtracer as pt
+    from voxelrt_torch.render import pipeline
+
+    dev = r.state.color.device
+    n_slots = 8 * r.cfg.max_ray_depth + 1
+    ranges = [(8 * d, 8) for d in range(r.cfg.max_ray_depth)]
+    ranges.append((n_slots - 1, 1))
+
+    def bits(x):
+        return x.view(torch.int32)
+
+    out = []
+    for res in sizes:
+        cfg = dataclasses.replace(r.cfg, image_res=res)
+        h = res[1]
+        u, v, s_of_ray = pipeline.wavefront_constants(cfg, 1.0, dev)
+        keys, _ = pipeline.launch_keys(
+            prng.fold_in(prng.fold_in(r.key, 0), 0), cfg.samples_per_launch)
+        keys = keys.to(dev)
+        sk = (keys[0][s_of_ray], keys[1][s_of_ray])
+        del s_of_ray
+        n = u.shape[0]
+
+        def eager(slots):
+            pid = u.to(torch.int64) * h + v.to(torch.int64)
+            kd = prng.fold_in(sk, pid)
+            d = pt.Pcg3dDraws(kd[0], kd[1])
+            return [d[s] for s in slots]
+
+        def launch():
+            return draws_kernel.pcg3d_draws(u, v, sk, h, 0, 8)
+
+        whole = draws_kernel.pcg3d_draws(u, v, sk, h, 0, n_slots)
+        slots_differ = [s for s, e in enumerate(eager(range(n_slots)))
+                        if not torch.equal(bits(whole[s]), bits(e))]
+        ranges_differ = [
+            [lo, k] for lo, k in ranges
+            if not torch.equal(bits(draws_kernel.pcg3d_draws(u, v, sk, h, lo,
+                                                             k)),
+                               bits(whole[lo:lo + k]))]
+        del whole
+        ms = device_ms(launch, 10)
+        bound_ms = n * (8 + 16 + 4 * 8) / HBM_BYTES_PER_S * 1e3
+        out.append(dict(
+            res=f"{res[0]}x{res[1]}", lanes=n, slots=n_slots,
+            slots_differ=slots_differ, ranges_differ=ranges_differ,
+            device_ms=ms, ms_with_wrapper=cuda_ms(launch, 10),
+            bound_ms=bound_ms, bound_by="bytes",
+            roofline_pct=100.0 * bound_ms / ms,
+            eager_ms=cuda_ms(lambda: eager(range(8)), 3),
+            ok=not slots_differ and not ranges_differ))
+        del u, v, sk, keys
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_shadow_path(main_steady_ms):
@@ -2880,16 +2953,17 @@ def main():
     if float(img.std()) <= 1e-4:
         fail("image is constant")
     for kname in ("traverse", "traverse_compact", "traverse_nee",
-                  "point_fetch", "bilinear_fetch_dirs", "shade"):
+                  "point_fetch", "bilinear_fetch_dirs", "shade", "draws"):
         if launches[kname] <= 0:
             fail(f"kernel {kname} was not launched on the main path")
     # a launch: B2 once (the escape sky), B3 at directions twice (the cone
     # centre's NEE transmittance, once for every depth of the shade kernel,
-    # and the escape's) and the shade kernel at each depth
+    # and the escape's), and the shade kernel and kernel D at each depth
     n_launch = MAIN_SPP // MAIN_SPL
     want = dict(point_fetch=n_launch, bilinear_fetch=0,
                 bilinear_fetch_dirs=2 * n_launch, bilinear_fetch_dirs2=0,
-                shade=r.cfg.max_ray_depth * n_launch)
+                shade=r.cfg.max_ray_depth * n_launch,
+                draws=r.cfg.max_ray_depth * n_launch)
     for kname, v in want.items():
         if launches[kname] != v:
             fail(f"main path: {launches[kname]} {kname} launches, expected "
@@ -2986,6 +3060,13 @@ def main():
         if not c["ok"]:
             fail(f"kernel S at depth {depth} disagrees with its twin")
     torch.cuda.empty_cache()
+
+    # -- 7c. kernel D vs Pcg3dDraws on the main path's own keys ---------------
+    draws = phase_draws(r)
+    for c in draws:
+        print(f"D {c['res']}: {json.dumps(c)}", flush=True)
+        if not c["ok"]:
+            fail(f"kernel D at {c['res']} is not bit-equal to Pcg3dDraws")
 
     # -- 8. small render: card path vs the plain CPU path ----------------------
     small = {}
@@ -3455,6 +3536,20 @@ def main():
              depth_alive=[c["alive"] for c in shade],
              depth_surf=[c["surf"] for c in shade],
              depth_lanes_differ=[c["lanes_differ"] for c in shade]),
+        dict(name="D draws", route="cuda",
+             source="voxelrt_torch/csrc/draws.cu",
+             replaces=None,  # the JAX package leaves the draws to XLA
+             launches=launches["draws"],
+             slots_differ=sum(len(c["slots_differ"]) for c in draws),
+             ms=draws[0]["device_ms"],
+             ms_with_wrapper=draws[0]["ms_with_wrapper"],
+             plain_ms=draws[0]["eager_ms"], bound_ms=draws[0]["bound_ms"],
+             bound_by="bytes", library_ms=None,
+             shape=f"{draws[0]['lanes']} lanes, 8 slots (a depth of a "
+                   "launch); the eager fold_in and Pcg3dDraws as plain_ms",
+             res_ms={c["res"]: c["device_ms"] for c in draws},
+             res_bound_ms={c["res"]: c["bound_ms"] for c in draws},
+             res_plain_ms={c["res"]: c["eager_ms"] for c in draws}),
         dict(name="P probe", route="cuda",
              source="voxelrt_torch/csrc/probe.cu",
              replaces="tools/pallas_probe.py:30",
@@ -3491,7 +3586,7 @@ def main():
                "B3 bilinear_fetch_dirs": "bilinear_fetch_dirs",
                "B3 bilinear_fetch_dirs2": "bilinear_fetch_dirs2",
                "B4 temporal_taps": "temporal_taps", "S shade": "shade",
-               "P probe": "probe"}
+               "D draws": "draws", "P probe": "probe"}
     for k in kernels:
         k["phase_launches"] = {tag: v.get(counter[k["name"]], 0)
                                for tag, v in phase_launches.items()}
@@ -3501,7 +3596,7 @@ def main():
                        samples_per_launch=MAIN_SPL,
                        peak_gb=peak_gb, small_rmse=rmse, device=smi,
                        steady_per_spp_ms=steady_ms, profile=prof,
-                       b1_depths=b1, b3=b3, shade=shade,
+                       b1_depths=b1, b3=b3, shade=shade, draws=draws,
                        moving_frame_ms=moving_frame_ms,
                        still_frame_ms=still_frame_ms, moving_wall_ms=walls,
                        moving_launches=mlaunches, moving_peak_gb=mpeak_gb,

@@ -65,7 +65,7 @@ def recorder_off():
 
 def launch_pattern(x, n):
     """The spans and counters one still launch records, with nothing inside
-    them: 27 spans, 20 counters (``x``: B1's ``counts`` on the card)."""
+    them: 27 spans, 24 counters (``x``: B1's ``counts`` on the card)."""
     from voxelrt_torch.ops.dda_kernel import B1_COUNTS
     from voxelrt_torch.utils import profiling as p
 
@@ -78,7 +78,7 @@ def launch_pattern(x, n):
             for d in range(4):
                 p.count("sample.lanes", n, depth=d)
                 with p.span("sample.draws", depth=d):
-                    pass
+                    p.count("draws.lanes", n, slots=8, lane_keys=True)
                 with p.span("sample.hit", depth=d):
                     with p.span("kernels.b1"):
                         if p.recording():

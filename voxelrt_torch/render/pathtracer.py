@@ -55,7 +55,7 @@ from typing import Any, NamedTuple
 import torch
 
 from voxelrt_torch.materials import fetch_material
-from voxelrt_torch.ops import packing, shade_kernel, v3
+from voxelrt_torch.ops import draws_kernel, packing, shade_kernel, v3
 from voxelrt_torch.ops.bsdf import (
     ALL_FEATURES,
     LOBE_DIFFUSE,
@@ -142,7 +142,8 @@ def mat_features(cfg) -> MatFeatures:
 class Pcg3dDraws:
     """Per-slot uniform draws: ``draws[slot]`` hashes the per-pixel key pair
     with PCG3D (pathtracer.py:123-141); slots group 3 to a PCG3D evaluation,
-    which is cached here."""
+    which is cached here. On the card kernel D (ops/draws_kernel.py) draws
+    the same bits."""
 
     def __init__(self, k0, k1):
         self._k0 = k0
@@ -720,11 +721,15 @@ def trace_sample(cfg, scene, params, u, v, sample_keys, jitter_u,
     tensors (the render/restir.py boundary).
 
     Each depth's shading runs as one launch of the shade kernel where
-    ``shade_kernel_applies``, else as ``shade_depth_eager``."""
+    ``shade_kernel_applies``, else as ``shade_depth_eager``. Each depth's
+    PCG3D draws are one launch of kernel D where ``draws_kernel_applies``
+    (ops/draws_kernel.py), else ``fold_in`` then ``Pcg3dDraws``, whose bits
+    the kernel's equal."""
     n = u.shape[0]
     dev = u.device
     restir = cfg.use_restir_pt
     on_card = shade_kernel_applies(cfg, dev)
+    card_draws = draws_kernel.draws_kernel_applies(cfg, dev)
     use_nee = cfg.use_directional_light
     # In-kernel NEE: the traversal kernel itself traces each surface's
     # sun-cone shadow ray, replacing the separate any-hit dispatch per depth
@@ -744,22 +749,31 @@ def trace_sample(cfg, scene, params, u, v, sample_keys, jitter_u,
         strans = center_transmittance(cfg, scene, params) if on_card else None
 
         # Counter-based per-pixel RNG: every uniform is a pure function of
-        # (global pixel id, sample key, draw slot).
-        pid = u.to(torch.int64) * cfg.image_res[1] + v.to(torch.int64)
-        kd = fold_in(sample_keys, pid)
-        if cfg.rng_draws == "pcg3d":
-            draws = Pcg3dDraws(kd[0], kd[1])
-        else:
-            draws = draw_table(cfg, kd)
-        del kd
+        # (global pixel id, sample key, draw slot). Kernel D folds each
+        # lane's key itself, in each launch.
+        if not card_draws:
+            pid = u.to(torch.int64) * cfg.image_res[1] + v.to(torch.int64)
+            kd = fold_in(sample_keys, pid)
+            if cfg.rng_draws == "pcg3d":
+                draws = Pcg3dDraws(kd[0], kd[1])
+            else:
+                draws = draw_table(cfg, kd)
+            del kd
+
+    def draw_slots(lo, k):
+        """Slots [lo, lo + k) of every lane, indexed from 0."""
+        if card_draws:
+            return draws_kernel.pcg3d_draws(u, v, sample_keys,
+                                            cfg.image_res[1], lo, k)
+        return [draws[lo + i] for i in range(k)]
 
     for depth in range(cfg.max_ray_depth):
-        base = 8 * depth
         profiling.count("sample.lanes", n, depth=depth)
         with profiling.span("sample.draws", depth=depth):
-            u_nee = (draws[base], draws[base + 1])
-            u_bsdf = (draws[base + 2], draws[base + 3], draws[base + 4])
-            u_sky = V3(draws[base + 5], draws[base + 6], draws[base + 7])
+            dr = draw_slots(8 * depth, 8)
+            u_nee = (dr[0], dr[1])
+            u_bsdf = (dr[2], dr[3], dr[4])
+            u_sky = V3(dr[5], dr[6], dr[7])
 
         with profiling.span("sample.hit", depth=depth):
             knee_vis = None
@@ -779,9 +793,12 @@ def trace_sample(cfg, scene, params, u, v, sample_keys, jitter_u,
             else:
                 shade_depth_eager(cfg, scene, params, depth, hit, knee_vis,
                                   s, u_nee, u_bsdf, u_sky)
+        # the depth's draws go before the next depth's are made
+        del dr, u_nee, u_bsdf, u_sky
     # the NEE sample's WRS uniform, the slot after the bounce loop's
-    u_wrs = draws[8 * cfg.max_ray_depth] if restir and use_nee else None
-    del draws
+    u_wrs = (draw_slots(8 * cfg.max_ray_depth, 1)[0] if restir and use_nee
+             else None)
+    draws = None
 
     if not restir:
         # --- deferred escape sky (single fetch for the whole bounce loop)
