@@ -34,7 +34,10 @@ bits, at most 0.1% of the lanes off and by 1e-5 relative at most, the
 lanes that do not trace left as they were), 7c kernel D against
 ``fold_in`` then ``Pcg3dDraws`` by bits on the main path's own lanes and
 keys at 14,745,600 and 33,177,600 lanes, every slot 0-32, with a depth's
-launch timed beside its byte bound, 8 a
+launch timed beside its byte bound, 7d kernel H against the eager glue of
+``next_hit`` by bits on a depth-1 state of the main path at 14,745,600
+and 33,177,600 lanes, a depth's two launches timed beside their byte
+bound, 8 a
 small-render check of the card path against the CPU
 path; 9 the moving path (24 moving frames at 640x360 active, then 6 still
 frames, counters set to 0 just before and read just after, B4's routes
@@ -772,6 +775,119 @@ def phase_draws(r, sizes=((1280, 720), (1920, 1080))):
             eager_ms=cuda_ms(lambda: eager(range(8)), 3),
             ok=not slots_differ and not ranges_differ))
         del u, v, sk, keys
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_hit(r, sizes=(14_745_600, 33_177_600)):
+    """Phase 7d: kernel H against the eager glue of ``next_hit`` by bits on
+    a depth-1 state of the main path: the closest-hit call of depth 1 in
+    one launch of ``r`` (its rays, mask and NEE arguments, copied as the
+    call was made), at each lane count of ``sizes``: the launch's own
+    14,745,600 lanes, and for more the state's lanes repeated. At each
+    count: B1's inputs (``hit_prepare`` against ``hit_prepare_eager``) and
+    the whole call (the Hit and the NEE verdicts) on both routes, by their
+    bits; a depth's two launches on the card (``device_ms``, the merge on
+    B1's outputs of the same call), their byte bound
+    (``benchmark/metrics/hit_bytes.py``, from the call's alive lanes) and
+    the eager glue of the same call less B1."""
+    import math
+
+    import torch
+
+    from benchmark.metrics.hit_bytes import launch_bytes
+    from voxelrt_torch.ops import hit_kernel, prng
+    from voxelrt_torch.ops.v3 import V3
+    from voxelrt_torch.render import pathtracer as pt
+    from voxelrt_torch.render import pipeline
+
+    calls = []  # the launch's closest-hit calls, one a depth: depth 1's kept
+    next_hit = pt.next_hit
+
+    def keep(cfg, scene, params, pos, d, mask, *a, **kw):
+        if not kw.get("shadow_ray"):
+            calls.append((cfg, scene, params, V3(*(c.clone() for c in pos)),
+                          V3(*(c.clone() for c in d)), mask.clone(), kw)
+                         if len(calls) == 1 else None)
+        return next_hit(cfg, scene, params, pos, d, mask, *a, **kw)
+
+    pt.next_hit = keep
+    try:
+        pipeline.accumulate(r.cfg, r.scene_data, r._params(1e9), r.state,
+                            prng.key(11))
+    finally:
+        pt.next_hit = next_hit
+    cfg, scene, params, pos0, d0, mask0, kw0 = calls[1]
+    del calls
+
+    def bits(x):
+        return x.view(torch.int32) if x.is_floating_point() else x
+
+    def flat(x):
+        for c in x:
+            if isinstance(c, (tuple, list)):
+                yield from flat(c)
+            elif c is not None:
+                yield c
+
+    out = []
+    for m in sizes:
+        def rep(x):
+            return x.repeat(math.ceil(m / x.shape[0]))[:m].contiguous()
+
+        pos, d = V3(*map(rep, pos0)), V3(*map(rep, d0))
+        mask = rep(mask0)
+        kw = dict(kw0, nee_u=tuple(map(rep, kw0["nee_u"])))
+        inputs_differ = sum(
+            not torch.equal(bits(a), bits(b)) for a, b in zip(
+                flat(hit_kernel.hit_prepare(cfg, params, pos, d, mask, True)),
+                flat(pt.hit_prepare_eager(cfg, params, pos, d, mask, True))))
+        kept = {}
+        raytrace = pt.raytrace
+
+        def keep_tr(*a, **k):
+            kept["tr"] = tr_ = raytrace(*a, **k)
+            return tr_
+
+        pt.raytrace = keep_tr
+        try:
+            got = pt.next_hit(cfg, scene, params, pos, d, mask, **kw)
+        finally:
+            pt.raytrace = raytrace
+        tr = kept.pop("tr")
+        applies = hit_kernel.hit_kernel_applies
+        hit_kernel.hit_kernel_applies = lambda c, dv: False
+        try:
+            want = pt.next_hit(cfg, scene, params, pos, d, mask, **kw)
+        finally:
+            hit_kernel.hit_kernel_applies = applies
+        fields_differ = sum(not torch.equal(bits(a), bits(b))
+                            for a, b in zip(flat(got), flat(want)))
+        del got, want
+
+        def eager():
+            floor = pt.floor_plane(params, pos, d, mask)
+            pt.hit_prepare_eager(cfg, params, pos, d, mask, True, floor)
+            pt.hit_merge_eager(cfg, params, pos, d, mask, tr, floor)
+
+        prepare_ms = device_ms(
+            lambda: hit_kernel.hit_prepare(cfg, params, pos, d, mask, True),
+            10)
+        merge_ms = device_ms(
+            lambda: hit_kernel.hit_merge(cfg, params, pos, d, mask, tr), 10)
+        alive = int(mask.sum())
+        bound_ms = (launch_bytes(m, alive, "prepare", True)
+                    + launch_bytes(m, alive, "merge", True)
+                    ) / HBM_BYTES_PER_S * 1e3
+        out.append(dict(
+            lanes=m, alive=alive, inputs_differ=inputs_differ,
+            fields_differ=fields_differ, prepare_ms=prepare_ms,
+            merge_ms=merge_ms, device_ms=prepare_ms + merge_ms,
+            bound_ms=bound_ms, bound_by="bytes",
+            roofline_pct=100.0 * bound_ms / (prepare_ms + merge_ms),
+            eager_ms=cuda_ms(eager, 3),
+            ok=inputs_differ == 0 and fields_differ == 0))
+        del pos, d, mask, kw, tr
         torch.cuda.empty_cache()
     return out
 
@@ -2953,17 +3069,21 @@ def main():
     if float(img.std()) <= 1e-4:
         fail("image is constant")
     for kname in ("traverse", "traverse_compact", "traverse_nee",
-                  "point_fetch", "bilinear_fetch_dirs", "shade", "draws"):
+                  "point_fetch", "bilinear_fetch_dirs", "shade", "draws",
+                  "hit_prepare", "hit_merge"):
         if launches[kname] <= 0:
             fail(f"kernel {kname} was not launched on the main path")
     # a launch: B2 once (the escape sky), B3 at directions twice (the cone
     # centre's NEE transmittance, once for every depth of the shade kernel,
-    # and the escape's), and the shade kernel and kernel D at each depth
+    # and the escape's), and the shade kernel, kernel D and kernel H's two
+    # stages at each depth
     n_launch = MAIN_SPP // MAIN_SPL
     want = dict(point_fetch=n_launch, bilinear_fetch=0,
                 bilinear_fetch_dirs=2 * n_launch, bilinear_fetch_dirs2=0,
                 shade=r.cfg.max_ray_depth * n_launch,
-                draws=r.cfg.max_ray_depth * n_launch)
+                draws=r.cfg.max_ray_depth * n_launch,
+                hit_prepare=r.cfg.max_ray_depth * n_launch,
+                hit_merge=r.cfg.max_ray_depth * n_launch)
     for kname, v in want.items():
         if launches[kname] != v:
             fail(f"main path: {launches[kname]} {kname} launches, expected "
@@ -3067,6 +3187,14 @@ def main():
         print(f"D {c['res']}: {json.dumps(c)}", flush=True)
         if not c["ok"]:
             fail(f"kernel D at {c['res']} is not bit-equal to Pcg3dDraws")
+
+    # -- 7d. kernel H vs the eager glue of next_hit on a depth-1 state ---------
+    hit = phase_hit(r)
+    for c in hit:
+        print(f"H {c['lanes']}: {json.dumps(c)}", flush=True)
+        if not c["ok"]:
+            fail(f"kernel H at {c['lanes']} lanes is not bit-equal to the "
+                 "eager next_hit")
 
     # -- 8. small render: card path vs the plain CPU path ----------------------
     small = {}
@@ -3550,6 +3678,20 @@ def main():
              res_ms={c["res"]: c["device_ms"] for c in draws},
              res_bound_ms={c["res"]: c["bound_ms"] for c in draws},
              res_plain_ms={c["res"]: c["eager_ms"] for c in draws}),
+        dict(name="H hit", route="cuda",
+             source="voxelrt_torch/csrc/hit.cu",
+             replaces=None,  # the JAX package leaves next_hit's glue to XLA
+             launches=launches["hit_merge"],
+             fields_differ=sum(c["fields_differ"] + c["inputs_differ"]
+                               for c in hit),
+             ms=hit[0]["device_ms"], ms_with_wrapper=None,
+             plain_ms=hit[0]["eager_ms"], bound_ms=hit[0]["bound_ms"],
+             bound_by="bytes", library_ms=None,
+             shape=f"{hit[0]['lanes']} lanes, a depth-1 state (hit_prepare "
+                   "and hit_merge); the eager glue less B1 as plain_ms",
+             lanes_ms={c["lanes"]: c["device_ms"] for c in hit},
+             lanes_bound_ms={c["lanes"]: c["bound_ms"] for c in hit},
+             lanes_plain_ms={c["lanes"]: c["eager_ms"] for c in hit}),
         dict(name="P probe", route="cuda",
              source="voxelrt_torch/csrc/probe.cu",
              replaces="tools/pallas_probe.py:30",
@@ -3586,7 +3728,7 @@ def main():
                "B3 bilinear_fetch_dirs": "bilinear_fetch_dirs",
                "B3 bilinear_fetch_dirs2": "bilinear_fetch_dirs2",
                "B4 temporal_taps": "temporal_taps", "S shade": "shade",
-               "D draws": "draws", "P probe": "probe"}
+               "D draws": "draws", "H hit": "hit_merge", "P probe": "probe"}
     for k in kernels:
         k["phase_launches"] = {tag: v.get(counter[k["name"]], 0)
                                for tag, v in phase_launches.items()}
@@ -3597,6 +3739,7 @@ def main():
                        peak_gb=peak_gb, small_rmse=rmse, device=smi,
                        steady_per_spp_ms=steady_ms, profile=prof,
                        b1_depths=b1, b3=b3, shade=shade, draws=draws,
+                       hit=hit,
                        moving_frame_ms=moving_frame_ms,
                        still_frame_ms=still_frame_ms, moving_wall_ms=walls,
                        moving_launches=mlaunches, moving_peak_gb=mpeak_gb,

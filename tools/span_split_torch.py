@@ -65,7 +65,7 @@ def recorder_off():
 
 def launch_pattern(x, n):
     """The spans and counters one still launch records, with nothing inside
-    them: 27 spans, 24 counters (``x``: B1's ``counts`` on the card)."""
+    them: 27 spans, 32 counters (``x``: B1's ``counts`` on the card)."""
     from voxelrt_torch.ops.dda_kernel import B1_COUNTS
     from voxelrt_torch.utils import profiling as p
 
@@ -80,11 +80,13 @@ def launch_pattern(x, n):
                 with p.span("sample.draws", depth=d):
                     p.count("draws.lanes", n, slots=8, lane_keys=True)
                 with p.span("sample.hit", depth=d):
+                    p.count("hit.lanes", n, nee=True, stage="prepare")
                     with p.span("kernels.b1"):
                         if p.recording():
                             p.count("b1.rays", n, any_hit=False)
                             for i, name in enumerate(B1_COUNTS):
                                 p.count(name, x[i], any_hit=False)
+                    p.count("hit.lanes", n, nee=True, stage="merge")
                 with p.span("sample.shade", depth=d):
                     pass
             for name in ("sample.sky", "sample.epilogue", "pipeline.embed"):

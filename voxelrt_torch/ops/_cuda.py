@@ -32,7 +32,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 # like its plain PyTorch twin (torch runs separate multiply and add ops).
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v"]
-SOURCES = ("dda", "texfetch", "resample", "probe", "shade", "draws")
+SOURCES = ("dda", "texfetch", "resample", "probe", "shade", "draws", "hit")
 
 # B1's passes: "traverse" counts its march launches (one per dispatch),
 # "traverse_shadow" those of them in shadow mode, "traverse_compact" the
@@ -41,11 +41,13 @@ SOURCES = ("dda", "texfetch", "resample", "probe", "shade", "draws")
 # "bilinear_fetch_dirs" (one map at directions) and "bilinear_fetch_dirs2"
 # (both maps at jittered directions). "shade" counts the shade kernel's
 # launches (one a depth), "draws" kernel D's (one a depth, and one for
-# ReSTIR's WRS draw).
+# ReSTIR's WRS draw), "hit_prepare" and "hit_merge" kernel H's (each once
+# a closest-hit dispatch).
 LAUNCHES = {"traverse": 0, "traverse_shadow": 0, "traverse_compact": 0,
             "traverse_nee": 0, "point_fetch": 0, "bilinear_fetch": 0,
             "bilinear_fetch_dirs": 0, "bilinear_fetch_dirs2": 0,
-            "temporal_taps": 0, "probe": 0, "shade": 0, "draws": 0}
+            "temporal_taps": 0, "probe": 0, "shade": 0, "draws": 0,
+            "hit_prepare": 0, "hit_merge": 0}
 
 _libs: dict = {}
 

@@ -572,13 +572,12 @@ def _nee_plain(T, ray, st, nrm, nee, max_advances, alive, sun, src_open):
 # --- wrapper ------------------------------------------------------------------
 
 
-def nee_params(u, alt_t, light_dir, tangent, bitangent, cone_cos, eps_grid,
-               shadow_tmin, device):
-    """Pack the in-kernel NEE inputs: per-ray cone uniforms ``u`` = (u0, u1)
-    and floor crossing ``alt_t`` (grid units, inf = none), plus the launch
-    scalars [L, X, Y, cone_cos, eps_grid, shadow_tmin] as one float32
-    tensor (dda_pallas.py raytrace_pallas ``nee=``). A Python number becomes
-    a device fill, not a host-to-device copy."""
+def nee_scalars(light_dir, tangent, bitangent, cone_cos, eps_grid,
+                shadow_tmin, device):
+    """The in-kernel NEE's launch scalars [L, X, Y, cone_cos, eps_grid,
+    shadow_tmin] as one float32 tensor of 12 (the ``scalars`` of
+    :func:`nee_params`). A Python number becomes a device fill, not a
+    host-to-device copy."""
     def one(c):
         if isinstance(c, torch.Tensor):
             return c.to(device=device, dtype=torch.float32).reshape(())
@@ -586,7 +585,18 @@ def nee_params(u, alt_t, light_dir, tangent, bitangent, cone_cos, eps_grid,
 
     vals = [one(c) for v in (light_dir, tangent, bitangent) for c in v]
     vals += [one(v) for v in (cone_cos, eps_grid, shadow_tmin)]
-    return dict(u0=u[0], u1=u[1], alt_t=alt_t, scalars=torch.stack(vals))
+    return torch.stack(vals)
+
+
+def nee_params(u, alt_t, light_dir, tangent, bitangent, cone_cos, eps_grid,
+               shadow_tmin, device):
+    """Pack the in-kernel NEE inputs: per-ray cone uniforms ``u`` = (u0, u1)
+    and floor crossing ``alt_t`` (grid units, inf = none), plus the launch
+    scalars of :func:`nee_scalars` (dda_pallas.py raytrace_pallas
+    ``nee=``)."""
+    return dict(u0=u[0], u1=u[1], alt_t=alt_t, scalars=nee_scalars(
+        light_dir, tangent, bitangent, cone_cos, eps_grid, shadow_tmin,
+        device))
 
 
 def raytrace(tables: DeviceTables, origin: V3, direction: V3, tmin, tmax,

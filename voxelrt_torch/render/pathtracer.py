@@ -55,7 +55,8 @@ from typing import Any, NamedTuple
 import torch
 
 from voxelrt_torch.materials import fetch_material
-from voxelrt_torch.ops import draws_kernel, packing, shade_kernel, v3
+from voxelrt_torch.ops import (dda_kernel, draws_kernel, hit_kernel,
+                                packing, shade_kernel, v3)
 from voxelrt_torch.ops.bsdf import (
     ALL_FEATURES,
     LOBE_DIFFUSE,
@@ -64,7 +65,7 @@ from voxelrt_torch.ops.bsdf import (
     disney_eval_split_pdf,
     sample_disney,
 )
-from voxelrt_torch.ops.dda_kernel import nee_params, raytrace
+from voxelrt_torch.ops.dda_kernel import raytrace
 from voxelrt_torch.ops.prng import fold_in, uniform
 from voxelrt_torch.ops.shade_kernel import shade_kernel_applies
 from voxelrt_torch.ops.sampling import (
@@ -270,8 +271,101 @@ def _trace_voxels_sorted(cfg, tables, origin: V3, d: V3, mask, shadow_ray,
         "distance", "ipos", "normal", "iters", "color_word", "active")})
 
 
+def floor_plane(params, pos: V3, d: V3, mask):
+    """The implicit floor plane's crossing (renderer/pathtracer.py:152-190):
+    (floor_dist, floor_valid), the distance along each ray and whether the
+    crossing counts (a tracing ray, ahead of it, inside the extent)."""
+    dy = d.y
+    floor_dist = (params.floor_height - pos.y) / torch.where(
+        dy == 0.0, 1e-20, dy)
+    hit_pos = pos + d * floor_dist
+    # The reference's extent check subtracts the scalar dot(hit_pos, normal)
+    # from the vector hit_pos (a quirky broadcast) — reproduced verbatim.
+    extent = length(hit_pos - hit_pos.y)
+    return floor_dist, mask & (floor_dist > EPS) & (extent < 10.0)
+
+
+def grid_origin(cfg, pos: V3) -> V3:
+    """World positions in B1's grid space (world_to_voxel)."""
+    return pos * (1.0 / cfg.voxel_dx) - cfg.grid_offset
+
+
+def hit_prepare_eager(cfg, params, pos: V3, d: V3, mask, nee, floor=None):
+    """B1's inputs for a ``next_hit`` dispatch: (the grid-space origin,
+    tmax, and with ``nee`` the floor crossing in grid units, inf where the
+    floor is not crossed, else None). The plain twin of kernel H's
+    ``hit_prepare`` (ops/hit_kernel.py); ``floor``: ``floor_plane``'s
+    result where the caller has it."""
+    origin = grid_origin(cfg, pos)
+    tmax = torch.where(mask, INF, 0.0)
+    if not nee:
+        return origin, tmax, None
+    floor_dist, floor_valid = (floor if floor is not None
+                               else floor_plane(params, pos, d, mask))
+    alt_t = torch.where(floor_valid, floor_dist * (1.0 / cfg.voxel_dx), INF)
+    return origin, tmax, alt_t
+
+
+def hit_merge_eager(cfg, params, pos: V3, d: V3, mask, tr, floor=None,
+                    any_hit=False):
+    """The closest of the floor plane and B1's voxel hit ``tr``
+    (renderer/pathtracer.py:218-244): (closest, normal, albedo, hit_light,
+    mat_id), the fields of ``Hit`` before ``iters``. The plain twin of
+    kernel H's ``hit_merge`` (ops/hit_kernel.py); ``floor``:
+    ``floor_plane``'s result where the caller has it; ``any_hit``: only
+    ``closest`` is meaningful, and the voxel's surface is not decoded."""
+    n = pos.x.shape[0]
+    dev = pos.x.device
+    floor_dist, floor_valid = (floor if floor is not None
+                               else floor_plane(params, pos, d, mask))
+    closest = torch.full((n,), INF, dtype=torch.float32, device=dev)
+    normal = v3.zeros(n, dev)
+    albedo = v3.ones(n, dev)
+    hit_light = torch.zeros((n,), dtype=torch.bool, device=dev)
+    mat_id = torch.zeros((n,), dtype=torch.int32, device=dev)
+
+    floor_ok = floor_valid & (floor_dist < closest)
+    closest = torch.where(floor_ok, floor_dist, closest)
+    normal = vwhere(floor_ok, V3(0.0, 1.0, 0.0), normal)
+    # Floor normal flip (pathtracer.py:186-187).
+    flip = floor_ok & (d.y > 0.0)
+    normal = vwhere(flip, -normal, normal)
+    albedo = vwhere(floor_ok, v3.splat(params.floor_color), albedo)
+    hit_light = torch.where(floor_ok, params.floor_material == 2, hit_light)
+    mat_id = torch.where(floor_ok, params.floor_material.to(torch.int32),
+                         mat_id)
+
+    # --- voxel grid (renderer/pathtracer.py:192-216)
+    vox_dist = tr.distance * cfg.voxel_dx
+    vox_ok = mask & (vox_dist < closest)
+    closest = torch.where(vox_ok, vox_dist, closest)
+    if any_hit:
+        return closest, normal, albedo, hit_light, mat_id
+    uv = vclip(grid_origin(cfg, pos) + d * tr.distance
+               - V3(*(c.to(torch.float32) for c in tr.ipos)), 0.0, 1.0)
+    color, v_is_light, v_mat = fetch_voxel_surface(
+        cfg, tr.ipos, uv, tr.color_word, params.voxel_edges)
+    normal = vwhere(vox_ok, tr.normal, normal)
+    albedo = vwhere(vox_ok, color, albedo)
+    hit_light = torch.where(vox_ok, v_is_light, hit_light)
+    mat_id = torch.where(vox_ok, v_mat, mat_id)
+    return closest, normal, albedo, hit_light, mat_id
+
+
+def nee_launch_scalars(cfg, params, device):
+    """B1's in-kernel NEE launch scalars (``dda_kernel.nee_scalars``): the
+    cone's axis and its basis, its cosine, the shadow origin's offset in
+    grid units and the shadow rays' tmin. They depend on ``params`` alone,
+    so ``trace_sample`` makes them once."""
+    ldir = v3.splat(params.light_direction)
+    tang_l, bitang_l = make_orthonormal_basis(ldir)
+    return dda_kernel.nee_scalars(ldir, tang_l, bitang_l,
+                                  params.light_cone_cos_theta_max,
+                                  EPS * (1.0 / cfg.voxel_dx), EPS, device)
+
+
 def next_hit(cfg, scene, params, pos: V3, d: V3, mask, shadow_ray=False,
-             sun_shadow=False, nee_u=None, coherent=False):
+             sun_shadow=False, nee_u=None, coherent=False, nee_scalars=None):
     """Closest hit of floor plane + voxel grid (renderer/pathtracer.py:218-244).
 
     mask: rays to trace; the others are dead lanes of the traversal kernel.
@@ -283,78 +377,49 @@ def next_hit(cfg, scene, params, pos: V3, d: V3, mask, shadow_ray=False,
     ``nee_u``: (u0, u1) cone uniforms enabling in-kernel NEE; returns
     (Hit, nee_visible) then, a plain Hit otherwise. The floor crossing is
     the kernel's alternative shadow origin; floor OCCLUSION of the shadow
-    ray stays a closed-form check in the caller. ``coherent`` marks rays
-    already in screen-tile order (the primaries), which skip the sorted
-    route of ``sort_rays``."""
-    n = pos.x.shape[0]
-    dev = pos.x.device
-    closest = torch.full((n,), INF, dtype=torch.float32, device=dev)
-    normal = v3.zeros(n, dev)
-    albedo = v3.ones(n, dev)
-    hit_light = torch.zeros((n,), dtype=torch.bool, device=dev)
-    mat_id = torch.zeros((n,), dtype=torch.int32, device=dev)
+    ray stays a closed-form check in the caller. ``nee_scalars``: the NEE
+    launch scalars (``nee_launch_scalars``), made here when not given.
+    ``coherent`` marks rays already in screen-tile order (the primaries),
+    which skip the sorted route of ``sort_rays``.
 
-    # --- implicit floor plane (renderer/pathtracer.py:152-190)
-    dy = d.y
-    floor_dist = (params.floor_height - pos.y) / torch.where(
-        dy == 0.0, 1e-20, dy)
-    hit_pos = pos + d * floor_dist
-    # The reference's extent check subtracts the scalar dot(hit_pos, normal)
-    # from the vector hit_pos (a quirky broadcast) — reproduced verbatim.
-    extent = length(hit_pos - hit_pos.y)
-    floor_ok = mask & (floor_dist > EPS) & (floor_dist < closest) & (
-        extent < 10.0)
-    closest = torch.where(floor_ok, floor_dist, closest)
-    normal = vwhere(floor_ok, V3(0.0, 1.0, 0.0), normal)
-    # Floor normal flip (pathtracer.py:186-187).
-    flip = floor_ok & (dy > 0.0)
-    normal = vwhere(flip, -normal, normal)
-    albedo = vwhere(floor_ok, v3.splat(params.floor_color), albedo)
-    hit_light = torch.where(floor_ok, params.floor_material == 2, hit_light)
-    mat_id = torch.where(floor_ok, params.floor_material.to(torch.int32),
-                         mat_id)
-
-    # --- voxel grid (renderer/pathtracer.py:192-216)
-    inv_size = 1.0 / cfg.voxel_dx
-    offset = cfg.grid_offset
-    eye_scaled = pos * inv_size - offset  # world_to_voxel
-    tmax = torch.where(mask, INF, 0.0)
+    A closest-hit call on the card forms B1's inputs and the Hit in kernel
+    H's two launches (``hit_kernel_applies``); any-hit calls and the CPU
+    run their twins ``hit_prepare_eager`` and ``hit_merge_eager``."""
+    card = not shadow_ray and hit_kernel.hit_kernel_applies(cfg,
+                                                            pos.x.device)
+    with_nee = nee_u is not None
+    floor = None
+    if card:
+        origin, tmax, alt_t = hit_kernel.hit_prepare(cfg, params, pos, d,
+                                                     mask, with_nee)
+    else:
+        floor = floor_plane(params, pos, d, mask)
+        origin, tmax, alt_t = hit_prepare_eager(cfg, params, pos, d, mask,
+                                                with_nee, floor)
     nee = None
-    if nee_u is not None:
-        floor_valid = mask & (floor_dist > EPS) & (extent < 10.0)
-        alt_t = torch.where(floor_valid, floor_dist * inv_size, INF)
-        ldir = v3.splat(params.light_direction)
-        tang_l, bitang_l = make_orthonormal_basis(ldir)
-        nee = nee_params(nee_u, alt_t, ldir, tang_l, bitang_l,
-                         params.light_cone_cos_theta_max, EPS * inv_size,
-                         EPS, dev)
+    if with_nee:
+        if nee_scalars is None:
+            nee_scalars = nee_launch_scalars(cfg, params, pos.x.device)
+        nee = dict(u0=nee_u[0], u1=nee_u[1], alt_t=alt_t,
+                   scalars=nee_scalars)
     if cfg.sort_rays and not coherent:
         if nee is not None:
             raise ValueError("the sorted route has no in-kernel NEE")
-        tr = _trace_voxels_sorted(cfg, scene.tables, eye_scaled, d, mask,
+        tr = _trace_voxels_sorted(cfg, scene.tables, origin, d, mask,
                                   shadow_ray, sun_shadow)
     else:
-        tr = raytrace(scene.tables, eye_scaled, d, EPS, tmax,
+        tr = raytrace(scene.tables, origin, d, EPS, tmax,
                       cfg.max_dda_advances, nee=nee, alive=mask,
                       any_hit=shadow_ray, fetch_colors=not shadow_ray,
                       use_sun_open=sun_shadow, sun_mode=cfg.dda_sun_mode,
                       nee_src_open=cfg.dda_nee_src_open == "on")
-    vox_dist = tr.distance * cfg.voxel_dx
-    vox_ok = mask & (vox_dist < closest)
-    closest = torch.where(vox_ok, vox_dist, closest)
-    if shadow_ray:
-        return Hit(closest, normal, albedo, hit_light, mat_id, tr.iters)
-    uv = vclip(eye_scaled + d * tr.distance
-               - V3(*(c.to(torch.float32) for c in tr.ipos)), 0.0, 1.0)
-    color, v_is_light, v_mat = fetch_voxel_surface(
-        cfg, tr.ipos, uv, tr.color_word, params.voxel_edges)
-    normal = vwhere(vox_ok, tr.normal, normal)
-    albedo = vwhere(vox_ok, color, albedo)
-    hit_light = torch.where(vox_ok, v_is_light, hit_light)
-    mat_id = torch.where(vox_ok, v_mat, mat_id)
-
-    hit_out = Hit(closest, normal, albedo, hit_light, mat_id, tr.iters)
-    if nee_u is not None:
+    if card:
+        fields = hit_kernel.hit_merge(cfg, params, pos, d, mask, tr)
+    else:
+        fields = hit_merge_eager(cfg, params, pos, d, mask, tr, floor,
+                                 shadow_ray)
+    hit_out = Hit(*fields, tr.iters)
+    if with_nee:
         return hit_out, tr.nee_visible
     return hit_out
 
@@ -724,7 +789,9 @@ def trace_sample(cfg, scene, params, u, v, sample_keys, jitter_u,
     ``shade_kernel_applies``, else as ``shade_depth_eager``. Each depth's
     PCG3D draws are one launch of kernel D where ``draws_kernel_applies``
     (ops/draws_kernel.py), else ``fold_in`` then ``Pcg3dDraws``, whose bits
-    the kernel's equal."""
+    the kernel's equal. Each depth's closest-hit glue around B1 is kernel
+    H's two launches on the card (``next_hit``). B1's in-kernel NEE launch
+    scalars are made once a call."""
     n = u.shape[0]
     dev = u.device
     restir = cfg.use_restir_pt
@@ -747,6 +814,8 @@ def trace_sample(cfg, scene, params, u, v, sample_keys, jitter_u,
                    | (v > render_scale * cfg.image_res[1]))
         s = start_state(cfg, params, d, inside)
         strans = center_transmittance(cfg, scene, params) if on_card else None
+        knee_scalars = (nee_launch_scalars(cfg, params, dev) if use_knee
+                        else None)
 
         # Counter-based per-pixel RNG: every uniform is a pure function of
         # (global pixel id, sample key, draw slot). Kernel D folds each
@@ -780,7 +849,8 @@ def trace_sample(cfg, scene, params, u, v, sample_keys, jitter_u,
             if use_knee:
                 hit, knee_vis = next_hit(cfg, scene, params, s.pos, s.d,
                                          s.tracing, nee_u=u_nee,
-                                         coherent=depth == 0)
+                                         coherent=depth == 0,
+                                         nee_scalars=knee_scalars)
             else:
                 hit = next_hit(cfg, scene, params, s.pos, s.d, s.tracing,
                                coherent=depth == 0)
